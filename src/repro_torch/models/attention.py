@@ -1,0 +1,199 @@
+"""Attention: GQA (full / sliding-window), prefill and decode paths.
+
+Prefill uses *chunked* attention — a loop over query blocks so the (S x S)
+score matrix is never materialized (O(q_chunk x S_kv) transient). Sliding
+windows additionally slice the KV to (window + q_chunk). With
+``ParallelConfig.attention_kernel == "kernel"`` prefill instead goes
+through the hand-written flash attention kernel (``repro_torch.kernels``).
+
+Decode uses single-token attention against a KV cache, which it updates in
+place. Scores, softmax and context are fp32 in every path, cast to the
+activation dtype at the end. MLA and cross-attention come with the slices
+that port deepseek-v3 and whisper.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.config.base import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.layers import apply_rope
+from repro_torch.models.params import ParamSpec
+
+NEG_INF = -1e30
+
+
+# --------------------------------------------------------------------------
+# Core chunked attention
+# --------------------------------------------------------------------------
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q: (B, Sq, Hkv, G, dh), k: (B, Sk, Hkv, dh) -> fp32 (B, Hkv, G, Sq, Sk)."""
+    return torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float())
+
+
+def _gqa_ctx(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """p: (B, Hkv, G, Sq, Sk), v: (B, Sk, Hkv, dh) -> (B, Sq, Hkv, G, dh)."""
+    return torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(p.dtype))
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int = 0,
+                      q_chunk: int = 512, q_offset: int = 0,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, Sq, Hq, dh); k, v: (B, Skv, Hkv, dh) -> (B, Sq, Hq, dh).
+
+    ``q_offset`` is the absolute position of q[0] relative to k[0]
+    (chunked-prefill support). ``window`` > 0 restricts each query to the
+    last ``window`` keys (inclusive of self).
+    """
+    B, Sq, Hq, dh = q.shape
+    _, Skv, Hkv, _ = k.shape
+    dv = v.shape[-1]
+    G = Hq // Hkv
+    scale = scale if scale is not None else dh ** -0.5
+    qc = q_chunk if (Sq % q_chunk == 0 and Sq >= q_chunk) else Sq
+    nq = Sq // qc
+    qg = q.reshape(B, nq, qc, Hkv, G, dh)
+
+    use_window = window > 0 and Skv > window + qc
+    kv_span = window + qc if use_window else Skv
+    dev = q.device
+
+    outs = []
+    for c in range(nq):
+        q0 = c * qc + q_offset                       # abs pos of first query
+        if use_window:
+            start = min(max(q0 - window, 0), Skv - kv_span)
+            k_c = k[:, start:start + kv_span]
+            v_c = v[:, start:start + kv_span]
+            kv_pos = start + torch.arange(kv_span, device=dev)
+        else:
+            k_c, v_c = k, v
+            kv_pos = torch.arange(Skv, device=dev)
+        scores = _gqa_scores(qg[:, c], k_c) * scale  # (B,Hkv,G,qc,kv)
+        q_pos = q0 + torch.arange(qc, device=dev)
+        mask = torch.ones((qc, kv_span), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kv_pos[None, :] <= q_pos[:, None]
+        if window > 0:
+            mask &= kv_pos[None, :] > q_pos[:, None] - window
+        scores = torch.where(mask, scores, NEG_INF)
+        p = torch.softmax(scores, dim=-1)
+        outs.append(_gqa_ctx(p, v_c).to(q.dtype))   # (B,qc,Hkv,G,dh)
+    return torch.cat(outs, dim=1).reshape(B, Sq, Hq, dv)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, valid_mask: torch.Tensor,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, 1, Hq, dh); caches: (B, S, Hkv, dh); valid_mask: (S,) or (B,S)."""
+    B, _, Hq, dh = q.shape
+    _, S, Hkv, _ = k_cache.shape
+    G = Hq // Hkv
+    scale = scale if scale is not None else dh ** -0.5
+    qg = q.reshape(B, 1, Hkv, G, dh)
+    scores = _gqa_scores(qg, k_cache) * scale        # (B,Hkv,G,1,S)
+    if valid_mask.dim() == 1:
+        valid_mask = valid_mask[None, :]
+    scores = torch.where(valid_mask[:, None, None, None, :], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    ctx = _gqa_ctx(p, v_cache)
+    return ctx.reshape(B, 1, Hq, dh).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# Standard (GQA) attention block projections
+# --------------------------------------------------------------------------
+
+
+def attention_specs(cfg: ModelConfig) -> dict:
+    d, Hq, Hkv, dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                      cfg.resolved_head_dim)
+    specs = {
+        "w_q": ParamSpec((d, Hq, dh), ("embed", "heads", None)),
+        "w_k": ParamSpec((d, Hkv, dh), ("embed", "kv_heads", None)),
+        "w_v": ParamSpec((d, Hkv, dh), ("embed", "kv_heads", None)),
+        "w_o": ParamSpec((Hq, dh, d), ("heads", None, "embed")),
+    }
+    if cfg.qkv_bias:
+        specs["b_q"] = ParamSpec((Hq, dh), ("heads", None), init="zeros")
+        specs["b_k"] = ParamSpec((Hkv, dh), ("kv_heads", None), init="zeros")
+        specs["b_v"] = ParamSpec((Hkv, dh), ("kv_heads", None), init="zeros")
+    return specs
+
+
+def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum('bsd,dhk->bshk') as one matmul, in x's dtype."""
+    d, H, dh = w.shape
+    return (x @ w.reshape(d, H * dh).to(x.dtype)).unflatten(-1, (H, dh))
+
+
+def _out_proj(ctx: torch.Tensor, w_o: torch.Tensor) -> torch.Tensor:
+    """einsum('bshk,hkd->bsd') as one matmul, in ctx's dtype."""
+    H, dh, d = w_o.shape
+    return ctx.flatten(-2) @ w_o.reshape(H * dh, d).to(ctx.dtype)
+
+
+def _project_qkv(p: dict, x: torch.Tensor):
+    q = _proj_heads(x, p["w_q"])
+    k = _proj_heads(x, p["w_k"])
+    v = _proj_heads(x, p["w_v"])
+    if "b_q" in p:
+        q = q + p["b_q"].to(q.dtype)
+        k = k + p["b_k"].to(k.dtype)
+        v = v + p["b_v"].to(v.dtype)
+    return q, k, v
+
+
+def attn_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                 cfg: ModelConfig, *, window: int = 0, q_chunk: int = 512,
+                 mctx=None) -> tuple[torch.Tensor, dict]:
+    """Causal full-sequence self-attention with rope (prefill). Returns
+    (out, kv) where kv holds the rope'd k/v for cache construction."""
+    q, k, v = _project_qkv(p, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if (mctx is not None
+            and mctx.parallel.attention_kernel == "kernel"
+            and q.shape[1] == k.shape[1]):
+        # The hand-written flash kernel reads the (B, S, H, d) tensors
+        # through (B, H, S, d) views and writes its output in q's layout,
+        # so no transpose is copied. Semantics == chunked_attention.
+        ctx = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=True,
+                              window=window).transpose(1, 2)
+    else:
+        ctx = chunked_attention(q, k, v, causal=True, window=window,
+                                q_chunk=q_chunk)
+    return _out_proj(ctx, p["w_o"]), {"k": k, "v": v}
+
+
+def attn_decode(p: dict, x: torch.Tensor, pos: int, cache: dict,
+                cfg: ModelConfig, *, window: int = 0
+                ) -> tuple[torch.Tensor, dict]:
+    """One decode step with rope. x: (B, 1, d). cache: {k,v: (B, S_or_W,
+    Hkv, dh)}.
+
+    ``pos`` is the current absolute position. The new k/v are written into
+    ``cache`` in place (at ``pos``, or ``pos % window`` for ring caches) —
+    where the reference returns an updated copy — and ``cache`` is returned.
+    """
+    q, k_new, v_new = _project_qkv(p, x)
+    positions = torch.full((x.shape[0], 1), pos, device=x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    k_cache, v_cache = cache["k"], cache["v"]
+    S = k_cache.shape[1]
+    slot = pos % S if window > 0 else pos
+    k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[:, slot] = v_new[:, 0].to(v_cache.dtype)
+    valid = torch.arange(S, device=x.device) <= pos
+    if window > 0:
+        valid |= pos >= S                # ring: all valid once wrapped
+    ctx = decode_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype), valid)
+    return _out_proj(ctx, p["w_o"]), cache

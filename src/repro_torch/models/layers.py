@@ -1,0 +1,114 @@
+"""Shared layer primitives: norms, rotary embeddings, MLPs, embeddings."""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config.base import ModelConfig
+from repro_torch.models.params import ParamSpec
+
+
+# --------------------------------------------------------------------------
+# Norms
+# --------------------------------------------------------------------------
+
+
+def rmsnorm_spec(d: int) -> ParamSpec:
+    return ParamSpec((d,), (None,), init="ones")
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    """Computed in fp32, cast back to x's dtype."""
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * w.float()).to(dtype)
+
+
+# --------------------------------------------------------------------------
+# Rotary position embeddings (M-RoPE comes with the qwen2-vl slice)
+# --------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_freqs(dim_half: int, theta: float, device: torch.device
+                ) -> torch.Tensor:
+    """The reference's fp32 inverse frequencies (computed in numpy, as it
+    computes them), copied to ``device`` once: a copy from pageable host
+    memory on every call would synchronize the stream twice per layer."""
+    freqs = 1.0 / (theta ** (np.arange(0, dim_half, dtype=np.float32)
+                             / dim_half))
+    return torch.from_numpy(np.asarray(freqs, np.float32)).to(device)
+
+
+def _rope_angles(positions: torch.Tensor, dim_half: int, theta: float
+                 ) -> torch.Tensor:
+    """positions: (..., S) -> fp32 angles (..., S, dim_half)."""
+    return positions[..., None].float() * _rope_freqs(dim_half, theta,
+                                                      positions.device)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (B, S, H, Dh). positions: (B, S). Split halves, not interleaved
+    pairs; angles and the rotation in fp32, cast back to x's dtype."""
+    half = x.shape[-1] // 2
+    angles = _rope_angles(positions, half, theta)          # (B, S, half)
+    cos = torch.cos(angles)[..., None, :]                  # (B, S, 1, half)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# MLPs
+# --------------------------------------------------------------------------
+
+
+def mlp_specs(d: int, d_ff: int) -> dict:
+    """Gated (SwiGLU) MLP; the ungated gelu MLP comes with whisper."""
+    return {
+        "w_gate": ParamSpec((d, d_ff), ("embed", "mlp")),
+        "w_up": ParamSpec((d, d_ff), ("embed", "mlp")),
+        "w_down": ParamSpec((d_ff, d), ("mlp", "embed")),
+    }
+
+
+def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Gated MLP in the activation dtype, as the reference runs it."""
+    dt = x.dtype
+    h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+    return h @ p["w_down"].to(dt)
+
+
+# --------------------------------------------------------------------------
+# Embeddings / unembedding
+# --------------------------------------------------------------------------
+
+
+def embedding_specs(cfg: ModelConfig) -> dict:
+    specs = {"tok": ParamSpec((cfg.vocab_size, cfg.d_model),
+                              ("vocab", "embed"), init="small_normal")}
+    if not cfg.tie_embeddings:
+        specs["out"] = ParamSpec((cfg.d_model, cfg.vocab_size),
+                                 ("embed", "vocab"))
+    return specs
+
+
+def embed_tokens(p: dict, tokens: torch.Tensor, dtype: torch.dtype
+                 ) -> torch.Tensor:
+    # gather then cast: the same values as the reference's cast then take,
+    # without a cast copy of the whole table
+    return p["tok"][tokens].to(dtype)
+
+
+def unembed(p: dict, x: torch.Tensor, tied: bool) -> torch.Tensor:
+    w = p["tok"].T if tied else p["out"]
+    return x @ w.to(x.dtype)
