@@ -45,6 +45,12 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# bf16 only: attention outputs at S=1024 are around 0.05, so 2e-2 absolute
+# alone would pass a broken bf16 load or store. Both sides round the same
+# fp32 result to bf16 and differ by at most one ulp (2**-8 relative) where
+# the summation order tips the rounding, so their relative L2 stays far
+# below 1e-2; a conversion fault gives O(1).
+BF16_REL_L2 = 1e-2
 # (B, Hq, Hkv, S, d, causal, window): tests/test_kernels.py's sweep, a
 # ragged edge, and the yi-9b prefill shape of the serve phase
 SWEEP = [(1, 2, 2, 128, 64, True, 0), (2, 4, 2, 128, 64, True, 0),
@@ -186,11 +192,15 @@ def phase_kernel() -> dict:
             out = flash_attention(q, k, v, causal=causal, window=window)
             ref = flash_attention_ref(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            ok = torch.allclose(out.float(), ref.float(), rtol=TOL[dtype],
-                                atol=TOL[dtype])
+            o, r = out.float(), ref.float()
+            err = (o - r).abs().max().item()
+            rel_l2 = ((o - r).norm() / r.norm()).item()
+            ok = torch.allclose(o, r, rtol=TOL[dtype], atol=TOL[dtype])
+            if dtype == "bfloat16":
+                ok = ok and rel_l2 <= BF16_REL_L2
             cases.append({"dtype": dtype, "shape": list(shape),
-                          "max_abs_err": err, "ok": bool(ok)})
+                          "max_abs_err": err, "rel_l2": rel_l2,
+                          "ok": bool(ok)})
     bad = [c for c in cases if not c["ok"]]
 
     q, k, v = _qkv(YI_PREFILL, "bfloat16", gen)
@@ -211,7 +221,8 @@ def phase_kernel() -> dict:
                    and c["shape"] == list(YI_PREFILL))
     out = {"phase": "kernel", "kernel": "flash_attention", "cases": cases,
            "yi_prefill_bf16": {**timing,
-                               "max_abs_err": yi_bf16["max_abs_err"]}}
+                               "max_abs_err": yi_bf16["max_abs_err"],
+                               "rel_l2": yi_bf16["rel_l2"]}}
     emit(out)
     if bad:
         raise AssertionError(f"flash_attention disagrees with its plain "
@@ -260,8 +271,7 @@ def phase_serve() -> dict:
         batch[i, plen - len(r.prompt):] = r.prompt
     batch = {"tokens": torch.from_numpy(batch).cuda()}
     params = engine.model.params
-    eager = Model.create(cfg, ParallelConfig(fsdp=False,
-                                             attention_kernel="eager"))
+    eager = Model.create(cfg, ParallelConfig(attention_kernel="eager"))
     with torch.inference_mode():
         logits_k, cache = engine.model.prefill(params, batch, plen + 1)
         logits_d, _ = engine.model.decode(params, cache,

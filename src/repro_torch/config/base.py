@@ -7,9 +7,9 @@ registry, ``ParallelConfig``), kept here so the port imports nothing from
 ``ParallelConfig.attention_kernel`` selects the prefill attention path:
 ``"eager"`` (plain chunked attention, the reference's ``"xla"``) or
 ``"kernel"`` (the hand-written flash attention kernel, the reference's
-``"pallas"``). It is the only ``ParallelConfig`` field the port reads so
-far; the others keep the reference's fields for the slices that port
-sharding, offload and training (``RunConfig`` comes with training).
+``"pallas"``). It is the only ``ParallelConfig`` field so far: each of the
+reference's other fields (sharding, remat, offload, training) comes with
+the slice that reads it, as ``RunConfig`` comes with training.
 """
 
 from __future__ import annotations
@@ -210,22 +210,10 @@ ATTENTION_KERNELS = ("eager", "kernel")
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """How a step is sharded + which tier optimizations are on."""
+    """How a step runs. The reference's sharding, remat, offload and
+    training fields join with the slices that read them."""
 
-    fsdp: bool = True              # shard weights/opt-state over 'data'
-    remat: str = "full"            # none | full | dots
-    offload_optimizer: str = "auto"   # auto | never | always (-> pinned_host)
-    offload_master: str = "auto"
-    scan_layers: bool = True
-    seq_shard_decode: bool = True  # long-context: shard KV seq over 'data'
-    gradient_compression: bool = False
     attention_kernel: str = "eager"  # eager | kernel
-    seq_parallel: bool = True      # activations seq-sharded over 'model'
-    microbatches: int = 1          # gradient-accumulation steps
-    # Serving: shard weights over both mesh axes and never gather them.
-    serve_2d_weights: bool = False
-    logits_fp32: bool = False      # cast logits to fp32 before softmax-CE
-    cast_params_bf16: bool = True  # keep fp32 master, compute in bf16
 
     def __post_init__(self):
         if self.attention_kernel not in ATTENTION_KERNELS:

@@ -55,17 +55,17 @@ def _sync(device: torch.device) -> None:
 class ServeEngine:
     def __init__(self, cfg,
                  parallel: ParallelConfig = ParallelConfig(
-                     fsdp=False, attention_kernel="kernel"),
+                     attention_kernel="kernel"),
                  offload_weights: bool = False, rng_seed: int = 0,
-                 device=None, tracer=NULL_TRACER, slo=None):
+                 device=None, tracer=NULL_TRACER):
         """An engine for ``cfg`` on ``device`` (default ``cuda``; raises if
         there is none) with bf16 weights drawn from a generator seeded with
         ``rng_seed`` on that device.
 
         Observability as in the reference: wall-clock prefill/decode-step
         spans plus a ``StragglerStats`` fed one sample per decode step,
-        whose summary lands in the metrics snapshot. ``slo`` optionally
-        takes one latency observation per finished request (class "serve").
+        whose summary lands in the metrics snapshot. The reference's
+        ``slo`` monitor comes with the serve control plane.
         """
         if offload_weights:
             raise NotImplementedError(
@@ -74,7 +74,6 @@ class ServeEngine:
                 "pager slice")
         self.cfg = cfg
         self.tracer = tracer
-        self.slo = slo
         self.straggler = StragglerStats()
         self.model = Model.create(cfg, parallel, device)
         gen = torch.Generator(device=self.model.device).manual_seed(rng_seed)
@@ -147,10 +146,6 @@ class ServeEngine:
             m.set("serve.decode_ms_per_tok", ms_per_tok)
             for k, v in self.straggler.summary().items():
                 m.set(f"serve.straggler.{k}", v)
-        if self.slo is not None:
-            lat = (handoff.prefill_ms + ms_per_tok * handoff.max_new) * 1e-3
-            for r in requests:
-                self.slo.observe("serve", lat)
         return [Result(r.rid, outs[i][:r.max_new], handoff.prefill_ms,
                        ms_per_tok)
                 for i, r in enumerate(requests)]

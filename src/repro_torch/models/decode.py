@@ -18,9 +18,8 @@ from repro_torch.models.attention import attn_decode
 from repro_torch.models.context import MCtx
 from repro_torch.models.layers import embed_tokens, mlp_apply, rmsnorm, unembed
 from repro_torch.models.params import stack_specs, torch_dtype
-from repro_torch.models.transformer import (Seg, check_supported,
-                                            forward_hidden, layer_params,
-                                            segment_plan)
+from repro_torch.models.transformer import (Seg, forward_hidden,
+                                            layer_params, segment_plan)
 
 
 # --------------------------------------------------------------------------
@@ -32,7 +31,6 @@ def cache_specs(cfg: ModelConfig, mctx: MCtx, B: int, S: int) -> dict:
     """ParamSpec tree for the decode cache of (cfg, batch B, max len S)."""
     out: dict[str, Any] = {}
     for seg in segment_plan(cfg):
-        check_supported(cfg, seg)
         out[seg.name] = stack_specs(
             kvcache.attn_cache_specs(cfg, B, S, mctx.cache_seq_axis,
                                      window=seg.window), seg.n)
@@ -54,7 +52,6 @@ def _attn_block_dec(p, x, pos, cache, cfg, mctx, *, window):
 
 def seg_decode(p, cache, x, pos, cfg: ModelConfig, mctx: MCtx, seg: Seg):
     """One token through a segment; its stacked cache is updated in place."""
-    check_supported(cfg, seg)
     for i in range(seg.n):
         x, _ = _attn_block_dec(layer_params(p, i), x, pos,
                                layer_params(cache, i), cfg, mctx,

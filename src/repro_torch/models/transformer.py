@@ -31,69 +31,35 @@ from repro_torch.models.params import stack_specs, torch_dtype
 @dataclasses.dataclass(frozen=True)
 class Seg:
     name: str
-    kind: str          # attn | gemma | zamba | mamba | xlstm
-    n: int             # stack length (layers or groups)
-    sub: int = 0       # inner group size (gemma locals / zamba mambas / mlstms)
-    moe: bool = False
+    n: int             # stack length (layers)
     window: int = 0
 
 
-def segment_plan(cfg: ModelConfig) -> list[Seg]:
-    if cfg.family == "hybrid":                      # zamba2
-        n_groups = cfg.num_layers // cfg.attn_every
-        tail = cfg.num_layers - n_groups * cfg.attn_every
-        segs = [Seg("groups", "zamba", n_groups, sub=cfg.attn_every)]
-        if tail:
-            segs.append(Seg("tail", "mamba", tail))
-        return segs
-    if cfg.family == "ssm":                         # xlstm
-        n_groups = cfg.num_layers // cfg.slstm_every
-        tail = cfg.num_layers - n_groups * cfg.slstm_every
-        segs = [Seg("groups", "xlstm", n_groups, sub=cfg.slstm_every - 1)]
-        if tail:
-            segs.append(Seg("tail", "xlstm_tail", tail))
-        return segs
-    if cfg.attn_type == "local_global":             # gemma3
-        g = cfg.local_global_ratio + 1
-        n_groups = cfg.num_layers // g
-        tail = cfg.num_layers - n_groups * g
-        segs = [Seg("groups", "gemma", n_groups, sub=cfg.local_global_ratio,
-                    window=cfg.window)]
-        if tail:
-            segs.append(Seg("tail", "attn", tail, window=cfg.window))
-        return segs
-    if cfg.moe is not None:
-        segs = []
-        fd = cfg.moe.first_dense_layers
-        if fd:
-            segs.append(Seg("dense", "attn", fd, window=cfg.window
-                            if cfg.attn_type == "swa" else 0))
-        segs.append(Seg("moe", "attn", cfg.num_layers - fd, moe=True,
-                        window=cfg.window if cfg.attn_type == "swa" else 0))
-        return segs
-    window = cfg.window if cfg.attn_type == "swa" else 0
-    return [Seg("decoder", "attn", cfg.num_layers, window=window)]
-
-
-def check_supported(cfg: ModelConfig, seg: Seg) -> None:
-    """Raise for what the port does not run yet, naming what brings it."""
-    if cfg.encoder_decoder:
-        raise NotImplementedError("encoder-decoder models (whisper) are not "
-                                  "ported yet; a later model slice brings them")
-    if seg.kind != "attn":
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for an architecture the port does not run yet, naming what
+    brings it. The model slices after the pager slice port these."""
+    unported = {
+        "hybrid (zamba) segments": cfg.family == "hybrid",
+        "ssm (xlstm) segments": cfg.family == "ssm",
+        "local/global (gemma) segments": cfg.attn_type == "local_global",
+        "MoE layers": cfg.moe is not None,
+        "MLA": cfg.mla is not None or cfg.attn_type == "mla",
+        "M-RoPE": cfg.mrope,
+        "encoder-decoder models": cfg.encoder_decoder,
+    }
+    missing = [what for what, hit in unported.items() if hit]
+    if missing:
         raise NotImplementedError(
-            f"segment kind {seg.kind!r} ({cfg.name}) is not ported yet; the "
-            f"model slices after the pager slice bring gemma, zamba, mamba "
-            f"and xlstm segments")
-    if seg.moe:
-        raise NotImplementedError(f"MoE layers ({cfg.name}) are not ported "
-                                  f"yet; the MoE model slice brings them")
-    if cfg.attn_type == "mla":
-        raise NotImplementedError(f"MLA ({cfg.name}) is not ported yet; the "
-                                  f"deepseek-v3 model slice brings it")
-    if cfg.mrope:
-        raise NotImplementedError(f"M-RoPE ({cfg.name}) is not ported yet; "
-                                  f"the qwen2-vl model slice brings it")
+            f"{cfg.name}: {', '.join(missing)} not ported yet; the model "
+            f"slices after the pager slice bring them")
+
+
+def segment_plan(cfg: ModelConfig) -> list[Seg]:
+    """The reference's plan for a dense decoder: one stack of attention
+    blocks (sliding-window under ``attn_type="swa"``)."""
+    check_supported(cfg)
+    window = cfg.window if cfg.attn_type == "swa" else 0
+    return [Seg("decoder", cfg.num_layers, window=window)]
 
 
 # --------------------------------------------------------------------------
@@ -112,7 +78,6 @@ def model_specs(cfg: ModelConfig) -> dict:
     specs: dict[str, Any] = {"embed": embedding_specs(cfg),
                              "final_norm": rmsnorm_spec(cfg.d_model)}
     for seg in segment_plan(cfg):
-        check_supported(cfg, seg)
         specs[seg.name] = stack_specs(attn_block_specs(cfg), seg.n)
     return specs
 
@@ -152,7 +117,6 @@ def _to_ring(kv: dict, window: int, S: int) -> dict:
 def seg_forward(p, x, positions, cfg: ModelConfig, mctx: MCtx, seg: Seg, *,
                 q_chunk: int = 512):
     """Run one segment. Returns (x, caches) with caches stacked [L, ...]."""
-    check_supported(cfg, seg)
     S = x.shape[1]
     kvs = []
     for i in range(seg.n):
@@ -179,12 +143,12 @@ def forward_hidden(params, cfg: ModelConfig, mctx: MCtx, batch: dict, *,
     Positions run ``arange(S)`` for every row and there is no padding mask,
     as in the reference.
     """
-    dtype = torch_dtype(cfg.dtype)
-    x = embed_tokens(params["embed"], batch["tokens"], dtype)
+    plan = segment_plan(cfg)
+    x = embed_tokens(params["embed"], batch["tokens"], torch_dtype(cfg.dtype))
     B, S = x.shape[:2]
     positions = _positions(B, S, x.device)
     caches = {}
-    for seg in segment_plan(cfg):
+    for seg in plan:
         x, c = seg_forward(params[seg.name], x, positions, cfg, mctx, seg,
                            q_chunk=q_chunk)
         caches[seg.name] = c

@@ -102,6 +102,11 @@ def test_kernel_matches_plain_on_card(dtype, B, Hq, Hkv, S, d, causal,
     ref = flash_attention_ref(q, k, v, causal=causal, window=window)
     tol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if dtype == "bfloat16":
+        # outputs near 0.05 at S=1024 make 2e-2 absolute loose for bf16:
+        # both sides round one fp32 result, so they differ by an ulp or so
+        o, r = out.float(), ref.float()
+        assert ((o - r).norm() / r.norm()).item() <= 1e-2
 
 
 def _card():

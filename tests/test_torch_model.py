@@ -23,7 +23,8 @@ from repro.config.base import ParallelConfig as JaxParallelConfig
 from repro.config.base import get_config as jax_get_config
 from repro.launch.mesh import make_host_mesh
 from repro.models.model import Model as JaxModel
-from repro_torch.config.base import ParallelConfig, get_config
+from repro_torch.config.base import (MLAConfig, MoEConfig, ParallelConfig,
+                                     get_config)
 from repro_torch.models.model import Model
 from repro_torch.models.params import params_from_jax
 
@@ -138,8 +139,21 @@ def test_prefill_and_decode_match_reference(kernel, dtype, window):
     _assert_tree_close(cache, jcache, tol_cache, "decode cache")
 
 
-def test_unported_architectures_raise():
-    cfg = dataclasses.replace(get_config("yi-9b").reduced(), family="ssm",
-                              slstm_every=2)
-    with pytest.raises(NotImplementedError, match="xlstm"):
-        Model.create(cfg, device="cpu").specs
+@pytest.mark.parametrize("change,named", [
+    (dict(family="hybrid", attn_every=2), "zamba"),
+    (dict(family="ssm", slstm_every=2), "xlstm"),
+    (dict(attn_type="local_global", local_global_ratio=1, window=8), "gemma"),
+    (dict(family="moe", moe=MoEConfig(num_experts=4)), "MoE"),
+    (dict(attn_type="mla", mla=MLAConfig()), "MLA"),
+    (dict(mrope=True), "M-RoPE"),
+    (dict(encoder_decoder=True, num_encoder_layers=2), "encoder-decoder"),
+])
+def test_unported_architectures_raise(change, named):
+    """Every way the port cannot run a config yet is refused up front, by
+    the specs, the cache specs and the forward pass alike."""
+    cfg = dataclasses.replace(get_config("yi-9b").reduced(), **change)
+    m = Model.create(cfg, device="cpu")
+    for use in (lambda: m.specs, lambda: m.init_cache(1, 4),
+                lambda: m.prefill({}, {"tokens": torch.zeros(1, 4).long()})):
+        with pytest.raises(NotImplementedError, match=named):
+            use()
