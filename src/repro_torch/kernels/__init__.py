@@ -5,10 +5,12 @@ a wrapper given CPU tensors runs its kernel's plain PyTorch version; given
 CUDA tensors it launches the hand-written kernel or raises. There is no
 fallback from a CUDA tensor to the plain version.
 
-Build: each kernel's CUDA sources (``<kernel>/csrc/*.cu``, with a plain C
-entry point) are compiled on first use by ``nvcc`` for ``sm_90a`` into a
-shared library under ``build/repro_torch_kernels/`` at the repository root,
-and loaded with ``ctypes``. Nothing is built when a module is imported.
+Build: each kernel family's CUDA sources (``<family>/csrc/*.cu``, with
+plain C entry points) are compiled on first use by ``nvcc`` for ``sm_90a``
+into one shared library per family under ``build/repro_torch_kernels/`` at
+the repository root, and loaded with ``ctypes``. Nothing is built when a
+module is imported; ``build_all`` builds every stale family at once, one
+``nvcc`` per family, all started together.
 
 Launch counts: ``LAUNCHES[name]`` is a plain integer that a wrapper raises
 by one each time it launches its kernel, and nowhere else, so a run can
@@ -31,7 +33,11 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES: dict[str, int] = {"flash_attention": 0}
+# kernel family -> the kernels its library holds
+FAMILIES = {"flash_attention": ("flash_attention",),
+            "paged_attention": ("paged_attention", "paged_attention_quant"),
+            "quant": ("quantize_pages", "dequantize_pages")}
+LAUNCHES: dict[str, int] = {k: 0 for ks in FAMILIES.values() for k in ks}
 
 # name -> {"seconds": build wall time, "log": nvcc's output (ptxas usage)}
 BUILD_INFO: dict[str, dict] = {}
@@ -57,6 +63,17 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
         return True
     raise ValueError(f"kernel inputs must all be on the CPU or all on CUDA; "
                      f"got devices {sorted(str(t.device) for t in tensors)}")
+
+
+def launch(fn, *args, device: torch.device) -> None:
+    """Call the C entry point ``fn(*args, stream)`` with ``device``'s
+    current stream; raise if it returns a CUDA error."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed with CUDA "
+                           f"error {err}")
 
 
 def _nvcc() -> str:
@@ -95,16 +112,37 @@ def build_library(name: str, sources: list[Path]) -> Path:
     return out
 
 
+def _stale(name: str, sources: list[Path]) -> bool:
+    """True when ``lib<name>.so`` is missing or older than a source."""
+    path = library_path(name)
+    return (not path.exists() or
+            path.stat().st_mtime < max(s.stat().st_mtime for s in sources))
+
+
 def load_library(name: str, sources: list[Path]) -> ctypes.CDLL:
     """The loaded ``lib<name>.so``, built first if it is missing or older
     than any of its sources. Loaded once per process."""
     lib = _LOADED.get(name)
     if lib is not None:
         return lib
-    path = library_path(name)
-    if (not path.exists() or
-            path.stat().st_mtime < max(s.stat().st_mtime for s in sources)):
+    if _stale(name, sources):
         build_library(name, sources)
-    lib = ctypes.CDLL(str(path))
+    lib = ctypes.CDLL(str(library_path(name)))
     _LOADED[name] = lib
     return lib
+
+
+def build_all(force: bool = False) -> None:
+    """Build every family's library that is missing or older than its
+    sources (every one with ``force``), the ``nvcc`` runs all started
+    together; ``BUILD_INFO`` then holds each build's time and ptxas log.
+    Raises if any build fails."""
+    import importlib
+    from concurrent.futures import ThreadPoolExecutor
+    mods = [importlib.import_module(f"repro_torch.kernels.{f}.ops")
+            for f in FAMILIES]
+    mods = [m for m in mods if force or _stale(m.LIBRARY, m.SOURCES)]
+    if not mods:
+        return
+    with ThreadPoolExecutor(len(mods)) as pool:
+        list(pool.map(lambda m: build_library(m.LIBRARY, m.SOURCES), mods))

@@ -13,10 +13,11 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import count_launch, load_library, use_kernel
+from repro_torch.kernels import (count_launch, launch, load_library,
+                                 use_kernel)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-NAME = "flash_attention"
+LIBRARY = "flash_attention"
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"]
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -24,7 +25,7 @@ _INT32_MAX = 2**31 - 1
 
 
 def _library() -> ctypes.CDLL:
-    lib = load_library(NAME, SOURCES)
+    lib = load_library(LIBRARY, SOURCES)
     fn = lib.repro_flash_attention_fwd
     fn.restype = ctypes.c_int
     # q, k, v, o; dtype, B, Hq, Hkv, Sq, Skv, d and 12 strides; scale,
@@ -85,19 +86,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _, Hkv, Skv, _ = k.shape
     scale = d ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
-    lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.repro_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, Hq, Hkv, Sq, Skv, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], float(scale), int(bool(causal)), int(window),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed with CUDA "
-                           f"error {err}")
-    count_launch(NAME)
+    launch(_library().repro_flash_attention_fwd, q.data_ptr(), k.data_ptr(),
+           v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], B, Hq, Hkv, Sq,
+           Skv, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+           *out.stride()[:3], float(scale), int(bool(causal)), int(window),
+           device=q.device)
+    count_launch("flash_attention")
     return out
 
 

@@ -42,3 +42,18 @@ def test_engine_without_device_refuses_a_machine_without_cuda(monkeypatch):
         ServeEngine(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device is available"):
         Model.create(cfg, device="cuda")
+
+
+def test_pager_entry_points_refuse_a_machine_without_cuda(monkeypatch):
+    from repro_torch.heimdall.kv_quant import kv_quant_kernel_wall
+    from repro_torch.launch.serve import (paired_kv_caches,
+                                          simulate_paged_decode)
+    from repro_torch.serving.pager import PagedKVCache, PagerConfig
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: PagedKVCache(PagerConfig()),
+                 lambda: paired_kv_caches(requests=1, tokens=8),
+                 lambda: simulate_paged_decode(requests=1, gen=1),
+                 lambda: kv_quant_kernel_wall()):
+        with pytest.raises(RuntimeError,
+                           match="no CUDA device is available"):
+            call()
