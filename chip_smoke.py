@@ -1,16 +1,42 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one CUDA card and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                       # every phase
+    python3 chip_smoke.py --only serve,pager    # just those, after the build
 
-Phases, one JSON line each:
+Phases, one JSON line each, in this order (the train phases come first,
+while the host has the most memory to pin):
 
   device         the card (nvidia-smi name and power limit), torch and CUDA
                  versions
   build          every kernel family's library (flash attention, paged
-                 attention, page quant) compiled by nvcc for sm_90a from the
+                 attention, quant) compiled by nvcc for sm_90a from the
                  repo's .cu sources, all at once; seconds and ptxas
                  register/spill lines for each
+  train_kernels  K6 and K7 (flat blockwise int8 quantize, dequantize) bit for
+                 bit against their plain versions over the reference's sweep
+                 (N = 2048, 65536; fp32, bf16), one block, an odd block count
+                 and yi-9b's largest gradient leaf (48 x 4096 x 11008 bf16);
+                 their times there beside their plain versions' and bounds,
+                 and K7's beside one torch.mul call that computes the same
+                 function
+  train          train() on full-width yi-9b (batch 8, seq 128, remat full)
+                 for 4 steps with master, mu and nu in pinned host memory as
+                 plan_training_placement(cfg, 1) puts them; all 48 layers
+                 unless /proc/meminfo says the host cannot pin that much, then
+                 the fewest layers cut (every width kept); step wall, the
+                 last step under the profiler (its device time and idle
+                 share), the optimizer stream's bytes and rates,
+                 pin-and-fill time, peak memory, finite losses, moved state
+  train_compressed  the same model and state over a one-rank NCCL pod group:
+                 compressed gradients (K6 then K7 per leaf) against the
+                 uncompressed ones from the same state (equal loss, within
+                 0.51 x scale per block) and 2 steps of
+                 make_train_step(compress_pod_grads=True) with exactly 12 K6
+                 and 12 K7 launches per step
+  train_resume   reduced yi-9b: train() for 6 steps with a checkpoint at step
+                 3, then a second train() resumed from it; the resumed losses
+                 must match the uninterrupted run's within 1e-5 relative
   kernel         K1 (flash attention) held against its plain PyTorch version
                  at the kernel sweep shapes and the yi-9b prefill shape,
                  fp32 and bf16; at the yi-9b shape in bf16 its time beside
@@ -23,7 +49,8 @@ Phases, one JSON line each:
                  K5 (page quantize, dequantize) bit for bit over the test
                  shapes and the pager's pool and host-page shapes; the four
                  kernels' times at the pager shape beside their plain
-                 versions' and their bounds
+                 versions' and their bounds, and K5's beside one torch.mul
+                 call that computes the same function
   serve          ServeEngine for full-width yi-9b (bf16 weights from a
                  seeded CUDA generator) answering 4 requests of
                  1024-(i % 4) prompt tokens and 32 new tokens; K1 must
@@ -56,10 +83,14 @@ at once; it has no CPU mode.
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import dataclasses
+import gc
 import importlib
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -106,6 +137,18 @@ PAGER = {"seqs": 16, "hq": 32, "hkv": 4, "d": 128, "page": 64,
 # 30% of its attention outputs moved by one ulp drifted by 1.3e-2 (relative
 # L2); a wrong mask or head mapping gives O(1).
 LOGITS_REL_L2 = 3e-2
+# K6/K7: tests/test_kernels.py's sweep, one block, an odd block count, and
+# yi-9b's largest gradient leaf (the stacked w_gate / w_up / w_down)
+FLAT_SWEEP = [2048, 65536, 256, 7 * 256]
+YI_LEAF = 48 * 4096 * 11008
+# The train phases: the reference CLI's batch and sequence, 4 steps; 2
+# compressed steps; reduced resume run of 6 steps, checkpoint at step 3
+TRAIN = {"batch": 8, "seq": 128, "steps": 4, "compressed_steps": 2,
+         "resume_steps": 6, "resume_every": 3}
+# host memory left unpinned beside the offloaded state (the process, NCCL,
+# the profiler, the page cache)
+PIN_HEADROOM = 8e9
+YI_LEAVES = 12               # parameter leaves of a dense yi-9b tree
 
 
 def emit(obj: dict) -> None:
@@ -162,20 +205,26 @@ def profile_device(fn):
     """Run ``fn`` under torch.profiler; return (its result, the device time
     in ms summed over every kernel, {kernel name: its device ms})."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
+    return (out, *device_time(prof))
+
+
+def device_time(prof) -> tuple[float, dict]:
+    """(ms summed over every kernel, {kernel name: its device ms}) of a
+    finished torch.profiler run."""
+    from torch.autograd import DeviceType
     by_kernel = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:    # CPU ops repeat their
             continue                            # kernels' device time
         by_kernel[e.key] = by_kernel.get(e.key, 0.0) + \
             e.self_device_time_total / 1e3
-    return out, sum(by_kernel.values()), by_kernel
+    return sum(by_kernel.values()), by_kernel
 
 
 def device_ms(by_kernel: dict, name: str) -> float:
@@ -430,28 +479,38 @@ def phase_paged_kernels() -> dict:
     # times at the pager shape, bf16
     q, kp, vp, bt, sl, kq, vq, ks, vs = pager_inputs
     hq, hs = quantize_pages_ref(kp[:n_host].contiguous())
+    hout = torch.empty(hq.shape, dtype=kp.dtype, device="cuda")
+
+    def deq_library():
+        # one PyTorch call computes K5's function: int8 times fp32, cast to
+        # the output dtype as it is stored
+        return torch.mul(hq, hs[:, None, :, None], out=hout)
+    # (kernel, plain version, bound, one library call or None)
     calls = {
         "paged_attention": (
             lambda: paged_attention(q, kp, vp, bt, sl),
             lambda: paged_attention_ref(q, kp, vp, bt, sl),
-            paged_attention_bound(q, kp, bt, sl)),
+            paged_attention_bound(q, kp, bt, sl), None),
         "paged_attention_quant": (
             lambda: paged_attention_quant(q, kq, vq, ks, vs, bt, sl),
             lambda: paged_attention_quant_ref(q, kq, vq, ks, vs, bt, sl),
-            paged_attention_bound(q, kq, bt, sl)),
+            paged_attention_bound(q, kq, bt, sl), None),
         "quantize_pages": (
             lambda: quantize_pages(kp), lambda: quantize_pages_ref(kp),
-            quant_bound(kp.shape, kp.element_size())),
+            quant_bound(kp.shape, kp.element_size()), None),
         "dequantize_pages": (
             lambda: dequantize_pages(hq, hs, out_dtype=kp.dtype),
             lambda: dequantize_pages_ref(hq, hs, kp.dtype),
-            quant_bound(hq.shape, kp.element_size())),
+            quant_bound(hq.shape, kp.element_size()), deq_library),
     }
     timing = {}
-    for name, (kern, plain, bnd) in calls.items():
+    for name, (kern, plain, bnd, library) in calls.items():
         ms = cuda_ms(kern)
         timing[name] = {"kernel_ms": ms, "plain_ms": cuda_ms(plain),
+                        "library_ms": cuda_ms(library) if library else None,
                         **bnd, "bound_share": bnd["bound_us"] / 1e3 / ms}
+    timing["dequantize_pages"]["library_bitwise"] = bool(torch.equal(
+        deq_library(), dequantize_pages_ref(hq, hs, kp.dtype)))
     pager_err = {c["kernel"]: c["max_abs_err"] for c in attn_cases
                  if c["dtype"] == "bfloat16" and c["shape"][6] ==
                  ps["n_pages"]}
@@ -625,7 +684,7 @@ def phase_pager() -> dict:
     expect = {"flash_attention": 0, "paged_attention": L * G,
               "paged_attention_quant": L * G,
               "quantize_pages": 2 * L * G + 2 * L,
-              "dequantize_pages": 2 * L}
+              "dequantize_pages": 2 * L, "quantize": 0, "dequantize": 0}
     out = {"phase": "pager", "layers": L, "sequences": g["seqs"],
            "prompt": g["prompt"], "decode_steps": G,
            "n_pages_per_pool": ps["n_pages"],
@@ -771,6 +830,347 @@ def phase_serve() -> dict:
     return out
 
 
+def flat_quant_bound(n: int, in_bytes: int, out: str) -> dict:
+    """K6 ('quantize'): n values read once, n int8 and n/256 scales written;
+    K7 ('dequantize'): n int8 and n/256 scales read, n fp32 written."""
+    scales = 4 * (n // 256)
+    if out == "quantize":
+        return bound(n * in_bytes + n + scales)
+    return bound(n + scales + 4 * n)
+
+
+def phase_train_kernels() -> dict:
+    """K6 and K7 bit for bit against their plain versions, and their times
+    at yi-9b's largest gradient leaf (bf16)."""
+    import torch
+    from repro_torch.kernels.quant import (dequantize, dequantize_ref,
+                                           quantize, quantize_ref)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases, timing = [], {}
+    for n, dtypes in [*((n, ("float32", "bfloat16")) for n in FLAT_SWEEP),
+                      (YI_LEAF, ("bfloat16",))]:
+        for dtype in dtypes:
+            x = (torch.randn(n, generator=gen, device="cuda") * 10).to(
+                getattr(torch, dtype))
+            q, s = quantize(x)
+            qr, sr = quantize_ref(x)
+            out = dequantize(qr, sr)
+            ref = dequantize_ref(qr, sr)
+            torch.cuda.synchronize()
+            cases.append({
+                "n": n, "dtype": dtype,
+                "quantize_bitwise": bool(torch.equal(q, qr)
+                                         and torch.equal(s, sr)),
+                "dequantize_bitwise": bool(torch.equal(out, ref)),
+                "q_max_diff": (q.int() - qr.int()).abs().max().item(),
+                "deq_max_abs_err": (out - ref).abs().max().item()})
+            del q, s, out, ref
+            if n == YI_LEAF:
+                def deq_library():
+                    # one PyTorch call computes K7's function: int8 times
+                    # fp32 promotes to fp32; no single call quantizes
+                    return torch.mul(qr.view(-1, 256), sr[:, None])
+                timing = {
+                    "quantize": {
+                        "kernel_ms": cuda_ms(lambda: quantize(x)),
+                        "plain_ms": cuda_ms(lambda: quantize_ref(x),
+                                            iters=5, warmup=1),
+                        "library_ms": None,
+                        **flat_quant_bound(n, x.element_size(),
+                                           "quantize")},
+                    "dequantize": {
+                        "kernel_ms": cuda_ms(lambda: dequantize(qr, sr)),
+                        "plain_ms": cuda_ms(lambda: dequantize_ref(qr, sr),
+                                            iters=5, warmup=1),
+                        "library_ms": cuda_ms(deq_library),
+                        "library_bitwise": bool(torch.equal(
+                            deq_library().view(-1), dequantize_ref(qr, sr))),
+                        **flat_quant_bound(n, x.element_size(),
+                                           "dequantize")}}
+                for t in timing.values():
+                    t["bound_share"] = t["bound_us"] / 1e3 / t["kernel_ms"]
+            del x, qr, sr
+    torch.cuda.empty_cache()
+    out = {"phase": "train_kernels", "cases": cases,
+           "yi_leaf_bf16": timing,
+           "max_abs_err": {
+               "quantize": max(c["q_max_diff"] for c in cases),
+               "dequantize": max(c["deq_max_abs_err"] for c in cases)}}
+    emit(out)
+    bad = [c for c in cases
+           if not (c["quantize_bitwise"] and c["dequantize_bitwise"])]
+    if bad:
+        raise AssertionError(f"flat quant kernels disagree with their plain "
+                             f"versions: {bad}")
+    return out
+
+
+def mem_available() -> int:
+    """MemAvailable of /proc/meminfo, in bytes."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def train_config(available: int):
+    """Full-width yi-9b with as many of its 48 layers as the host can hold
+    in pinned memory: master, mu and nu, 12 bytes per parameter, beside
+    ``PIN_HEADROOM``."""
+    from repro_torch.config.base import get_config
+    from repro_torch.models.params import count_params
+    from repro_torch.models.transformer import model_specs
+    full = get_config("yi-9b")
+
+    def pinned(layers):
+        return 12 * count_params(model_specs(
+            dataclasses.replace(full, num_layers=layers)))
+    layers = full.num_layers
+    while layers > 1 and pinned(layers) > available - PIN_HEADROOM:
+        layers -= 1
+    cut = layers < full.num_layers
+    return (dataclasses.replace(full, num_layers=layers) if cut else full,
+            {"layers": layers, "full_layers": full.num_layers,
+             "pinned_bytes_needed": pinned(layers),
+             "pinned_bytes_full": pinned(full.num_layers),
+             "mem_available": available, "headroom": PIN_HEADROOM,
+             "cut": cut})
+
+
+def _every_layer(tree, pred) -> bool:
+    """``pred`` holds somewhere in every layer slice of each stacked leaf
+    (in a strided sample of it) and somewhere in each unstacked leaf."""
+    from repro_torch.models.params import tree_flatten
+    for path, x in tree_flatten(tree):
+        rows = x.reshape(x.shape[0] if _stacked(path) else 1, -1)
+        step = max(1, rows.shape[1] // 4096)
+        if not bool(pred(rows[:, ::step]).any(dim=1).all()):
+            return False
+    return True
+
+
+def _stacked(path) -> bool:
+    """Leaves under the decoder segment carry a leading layer dim."""
+    return path[0] == "decoder"
+
+
+def phase_train() -> tuple[dict, dict]:
+    """train() on full-width yi-9b with its optimizer state offloaded; its
+    last step runs under the profiler."""
+    import statistics
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels
+    from repro_torch.config.base import ParallelConfig, RunConfig, ShapeConfig
+    from repro_torch.core.placement import plan_training_placement
+    from repro_torch.launch.train import train
+    from repro_torch.models.params import tree_flatten
+
+    # before anything else: how much host memory there is to pin
+    cfg, sizing = train_config(mem_available())
+    plan = plan_training_placement(cfg, 1)
+    if [plan.kinds[g] for g in ("master", "mu", "nu")] != ["pinned_host"] * 3:
+        raise AssertionError(f"placement plan does not offload the optimizer "
+                             f"state: {plan.kinds}")
+    shape = ShapeConfig("smoke", TRAIN["seq"], TRAIN["batch"], "train")
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    run = RunConfig(steps=TRAIN["steps"], checkpoint_every=0,
+                    checkpoint_dir=str(ckpt_dir), log_every=1)
+    parallel = ParallelConfig(remat="full")
+    log, prof = [], profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+
+    def around_step(i):
+        return prof if i == TRAIN["steps"] - 1 else contextlib.nullcontext()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = train(cfg, shape, run, parallel, device="cuda", log=log.append,
+                around_step=around_step)
+    wall_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    params_c, master, opt = state = out["state"]
+    # device time by kind in the profiled step, against that step's own
+    # wall (which ends in a device sync and excludes the trace processing)
+    dev_ms, by_kernel = device_time(prof)
+    prof_wall_ms = out["step_s"][-1] * 1e3
+    h2d_ms = device_ms(by_kernel, "HtoD")
+    d2h_ms = device_ms(by_kernel, "DtoH")
+
+    steps = out["step_s"]
+    rest = steps[1:]
+    per_step = {k: out["offload"][k] / len(steps)
+                for k in ("bytes_to_device", "bytes_to_host")}
+    med_ms = statistics.median(rest) * 1e3
+    pinned = {g: all(t.device.type == "cpu" and t.is_pinned()
+                     for _, t in tree_flatten(tree))
+              for g, tree in (("master", master), ("mu", opt.mu),
+                              ("nu", opt.nu))}
+    norms = {"decoder": {k: master["decoder"][k] for k in ("ln1", "ln2")},
+             "final_norm": master["final_norm"]}      # initialised to ones
+    moved = {"master_norms_moved": _every_layer(norms, lambda r: r != 1),
+             "mu_nonzero": _every_layer(opt.mu, lambda r: r != 0),
+             "nu_nonzero": _every_layer(opt.nu, lambda r: r != 0)}
+    losses = out["history"]
+    result = {
+        "phase": "train", "arch": cfg.name, **sizing,
+        "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+        "params": sum(t.numel() for _, t in tree_flatten(master)),
+        "batch": TRAIN["batch"],
+        "seq": TRAIN["seq"], "remat": parallel.remat,
+        "placement": plan.kinds, "state_pinned": pinned,
+        "init_s": out["init_s"], "wall_s": wall_s,
+        "step_s": steps, "first_step_s": steps[0],
+        "step_median_ms": med_ms, "step_max_ms": max(rest) * 1e3,
+        "losses": losses, "optimizer_stream_per_step": per_step,
+        "profiled_step": {"step": TRAIN["steps"] - 1,
+            "wall_ms": prof_wall_ms, "device_ms": dev_ms,
+            "memcpy_htod_ms": h2d_ms, "memcpy_dtoh_ms": d2h_ms,
+            "kernels_ms": dev_ms - h2d_ms - d2h_ms,
+            "idle_share": 1 - dev_ms / prof_wall_ms,
+            "idle_share_of_median_step": 1 - dev_ms / med_ms,
+            "htod_gb_per_s": per_step["bytes_to_device"] / h2d_ms / 1e6,
+            "dtoh_gb_per_s": per_step["bytes_to_host"] / d2h_ms / 1e6,
+            "link_share_of_median_step": (h2d_ms + d2h_ms) / med_ms},
+        "optimizer_link_gb_per_s_wall": (
+            (per_step["bytes_to_device"] + per_step["bytes_to_host"])
+            / (med_ms / 1e3) / 1e9),
+        "peak_allocated_gb": peak_gb, "launches": launches, **moved,
+        "count": int(opt.count), "log": log[-TRAIN["steps"]:]}
+    emit(result)
+    if len(losses) != TRAIN["steps"] or not all(math.isfinite(v)
+                                                for v in losses):
+        raise AssertionError(f"train losses: {losses}")
+    if not all(pinned.values()) or not all(moved.values()):
+        raise AssertionError(f"offloaded state not pinned or not updated: "
+                             f"{pinned}, {moved}")
+    if launches["quantize"] or launches["dequantize"]:
+        raise AssertionError(f"uncompressed training launched K6/K7: "
+                             f"{launches}")
+    return result, {"cfg": cfg, "shape": shape, "run": run,
+                    "parallel": parallel, "plan": plan, "state": state}
+
+
+def phase_train_compressed(ctx: dict) -> dict:
+    """The train phase's model and state over a one-rank NCCL pod group:
+    compressed against uncompressed gradients from the same state, then 2
+    compressed steps with exact K6/K7 launch counts."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.data.synthetic import synthetic_batch
+    from repro_torch.launch.train import train_step_fn
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import tree_flatten
+    from repro_torch.training.step import compute_grads
+
+    cfg, shape, run, plan = ctx["cfg"], ctx["shape"], ctx["run"], ctx["plan"]
+    state = ctx["state"]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        group = dist.group.WORLD
+        model = Model.create(cfg, ctx["parallel"], device="cuda",
+                             pod_group=group)
+        batch = {k: v.cuda() for k, v in synthetic_batch(
+            cfg, shape, 1000, run.seed).items()}
+        (loss0, _), g0 = compute_grads(model, state[0], batch)
+        kernels.reset_launches()
+        (loss1, _), g1 = compute_grads(model, state[0], batch,
+                                       compress_pod_grads=True)
+        torch.cuda.synchronize()
+        grad_launches = dict(kernels.LAUNCHES)
+        worst, bad = 0.0, []
+        for (path, a), (_, b) in zip(tree_flatten(g0), tree_flatten(g1)):
+            # layer by layer where a layer is whole 256-element blocks
+            by_layer = _stacked(path) and a[0].numel() % 256 == 0
+            for i in range(a.shape[0]) if by_layer else (None,):
+                x = (a if i is None else a[i]).reshape(-1)
+                y = (b if i is None else b[i]).reshape(-1)
+                pad = (-x.numel()) % 256
+                xb = torch.nn.functional.pad(x.float(), (0, pad)).view(-1, 256)
+                yb = torch.nn.functional.pad(y, (0, pad)).view(-1, 256)
+                scale = xb.abs().amax(1).clamp_min(1e-12) / 127
+                ratio = ((yb - xb).abs().amax(1) / scale).max().item()
+                worst = max(worst, ratio)
+                if ratio > 0.51:
+                    bad.append(("/".join(path), i, ratio))
+        del g0, g1
+        torch.cuda.empty_cache()
+
+        step_fn = train_step_fn(model, run, plan, compress=True)
+        kernels.reset_launches()
+        walls, losses = [], []
+        for k in range(TRAIN["compressed_steps"]):
+            b = {key: v.cuda() for key, v in synthetic_batch(
+                cfg, shape, 1001 + k, run.seed).items()}
+            t0 = time.perf_counter()
+            *state, m = step_fn(*state, b)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    n = TRAIN["compressed_steps"]
+    out = {"phase": "train_compressed", "pod_group": "nccl, 1 rank",
+           "layers": cfg.num_layers, "leaves": len(tree_flatten(state[0])),
+           "loss_uncompressed": float(loss0),
+           "loss_compressed": float(loss1),
+           "loss_equal": bool(torch.equal(loss0, loss1)),
+           "grad_err_over_scale_max": worst, "grad_bound": 0.51,
+           "grad_launches": grad_launches, "step_s": walls,
+           "losses": losses, "launches": launches,
+           "launches_per_step": {k: launches[k] / n
+                                 for k in ("quantize", "dequantize")}}
+    emit(out)
+    want = {"quantize": YI_LEAVES, "dequantize": YI_LEAVES}
+    got = {k: grad_launches[k] for k in want}
+    if got != want or out["launches_per_step"] != want:
+        raise AssertionError(f"K6/K7 launches {got} per gradient pass and "
+                             f"{out['launches_per_step']} per step; "
+                             f"expected {want}")
+    if not out["loss_equal"] or bad:
+        raise AssertionError(f"compressed gradients: loss {float(loss1)} vs "
+                             f"{float(loss0)}, blocks over the bound {bad}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"compressed-step losses: {losses}")
+    return out
+
+
+def phase_train_resume() -> dict:
+    """Reduced yi-9b: an uninterrupted 6-step run that checkpoints at step
+    3, then a second run that resumes from that checkpoint."""
+    from repro_torch.config.base import (ParallelConfig, RunConfig,
+                                         ShapeConfig, get_config)
+    from repro_torch.launch.train import train
+    cfg = get_config("yi-9b").reduced()
+    shape = ShapeConfig("smoke", TRAIN["seq"], TRAIN["batch"], "train")
+    ckpt_dir = ROOT / "build" / "train_resume_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    run = RunConfig(steps=TRAIN["resume_steps"], learning_rate=1e-3,
+                    warmup_steps=2, checkpoint_every=TRAIN["resume_every"],
+                    checkpoint_dir=str(ckpt_dir), log_every=100)
+    quiet = dict(device="cuda", log=lambda *a: None)
+    first = train(cfg, shape, run, ParallelConfig(remat="full"), **quiet)
+    saved = sorted(p.name for p in ckpt_dir.iterdir())
+    second = train(cfg, shape, run, ParallelConfig(remat="full"), **quiet)
+    a, b = first["history"][TRAIN["resume_every"] + 1:], second["history"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(b, a)) if b else math.inf
+    out = {"phase": "train_resume", "arch": cfg.name, "layers":
+           cfg.num_layers, "checkpoints": saved, "uninterrupted": a,
+           "resumed": b, "max_rel_diff": rel, "bound": 1e-5}
+    emit(out)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if len(b) != len(a) or len(b) == 0 or rel > 1e-5:
+        raise AssertionError(f"resumed losses {b} vs uninterrupted {a}")
+    return out
+
+
 PAGED_SOURCES = {
     "paged_attention": ("src/repro_torch/kernels/paged_attention/csrc/"
                         "paged_attention.cu",
@@ -786,7 +1186,8 @@ PAGED_SOURCES = {
 }
 
 
-def kernels_line(kern: dict, serve: dict, paged: dict, pager: dict) -> dict:
+def kernels_line(kern: dict, serve: dict, paged: dict, pager: dict,
+                 flat: dict, compressed: dict) -> dict:
     """Every ported kernel: launches on its main path, agreement with its
     plain version, and its times at the main path's shape."""
     yi = kern["yi_prefill_bf16"]
@@ -821,11 +1222,68 @@ def kernels_line(kern: dict, serve: dict, paged: dict, pager: dict) -> dict:
             "max_abs_err": paged["pager_shape_max_abs_err"][name],
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"],
-            "library_ms": None})
+            "library_ms": t["library_ms"]})
+    for name, line in (("quantize", 42), ("dequantize", 127)):
+        t = flat["yi_leaf_bf16"][name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/quant/csrc/quant_pages.cu",
+            "replaces": f"src/repro/kernels/quant/kernel.py:{line}",
+            "launches": compressed["launches"][name],
+            "matched": all(c[f"{name}_bitwise"] for c in flat["cases"]),
+            "max_abs_err": flat["max_abs_err"][name],
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     return {"kernels": rows}
 
 
-def main() -> int:
+def phase_all() -> None:
+    """Every phase after the build, then the kernels line."""
+    with expandable_segments():
+        flat = phase_train_kernels()
+        _, train_ctx = phase_train()
+        compressed = phase_train_compressed(train_ctx)
+        del train_ctx
+        phase_train_resume()
+    kern = phase_kernel()
+    paged = phase_paged_kernels()
+    serve = phase_serve()
+    pager = phase_pager()
+    phase_paged_sim()
+    phase_kv_quant()
+    emit(kernels_line(kern, serve, paged, pager, flat, compressed))
+
+
+@contextlib.contextmanager
+def expandable_segments():
+    """Training holds most of the card: inside, the allocator grows its
+    segments instead of fragmenting fixed ones. The phases after it run
+    with the default allocator, as they do alone."""
+    import torch
+    settings = getattr(torch._C, "_accelerator_setAllocatorSettings", None) \
+        or torch.cuda.memory._set_allocator_settings
+    settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        gc.collect()            # the pinned training state, unregistered
+        torch.cuda.empty_cache()
+        settings("expandable_segments:False")
+
+
+ONLY = {"serve": phase_serve, "pager": phase_pager}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", help="comma-separated phases of "
+                    f"{sorted(ONLY)}: run just those (after device and "
+                    "build), print no kernels line")
+    args = ap.parse_args(argv)
+    only = args.only.split(",") if args.only else []
+    if set(only) - set(ONLY):
+        ap.error(f"--only takes phases of {sorted(ONLY)}")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; this script runs only "
@@ -837,13 +1295,11 @@ def main() -> int:
     smi = nvidia_smi()
     dev = phase_device(smi)
     phase_build()
-    kern = phase_kernel()
-    paged = phase_paged_kernels()
-    serve = phase_serve()
-    pager = phase_pager()
-    phase_paged_sim()
-    phase_kv_quant()
-    emit(kernels_line(kern, serve, paged, pager))
+    if only:
+        for name in only:
+            ONLY[name]()
+    else:
+        phase_all()
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
                                  "count": dev["count"]}})

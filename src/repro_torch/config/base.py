@@ -1,20 +1,23 @@
-"""Config system: model and parallelism configs and the arch registry.
+"""Config system: model, shape, parallelism and run configs and the arch
+registry.
 
 A copy of the reference's ``repro/config/base.py`` (model configs, the
-registry, ``ParallelConfig``), kept here so the port imports nothing from
-``repro``. Configs are frozen dataclasses.
+registry, ``ShapeConfig``, ``ParallelConfig``, ``RunConfig``), kept here so
+the port imports nothing from ``repro``. Configs are frozen dataclasses.
 
 ``ParallelConfig.attention_kernel`` selects the prefill attention path:
 ``"eager"`` (plain chunked attention, the reference's ``"xla"``) or
 ``"kernel"`` (the hand-written flash attention kernel, the reference's
-``"pallas"``). It is the only ``ParallelConfig`` field so far: each of the
-reference's other fields (sharding, remat, offload, training) comes with
-the slice that reads it, as ``RunConfig`` comes with training.
+``"pallas"``). ``remat``, ``microbatches`` and ``gradient_compression`` are
+read by the training step; the reference's sharding and offload fields
+come with the slice that ports the mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from typing import Any, Callable, Optional
 
 
@@ -202,24 +205,67 @@ class ModelConfig:
 
 
 # --------------------------------------------------------------------------
+# Input shapes
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str              # train | prefill | decode
+
+
+# --------------------------------------------------------------------------
 # Parallelism / run configuration
 # --------------------------------------------------------------------------
 
 ATTENTION_KERNELS = ("eager", "kernel")
+REMAT = ("none", "full")
 
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """How a step runs. The reference's sharding, remat, offload and
-    training fields join with the slices that read them."""
+    """How a step runs. The reference's sharding and offload fields join
+    with the slice that ports the mesh."""
 
     attention_kernel: str = "eager"  # eager | kernel
+    remat: str = "full"              # none | full (checkpoint every block)
+    microbatches: int = 1            # gradient-accumulation steps
+    gradient_compression: bool = False   # int8 cross-pod gradient mean
 
     def __post_init__(self):
         if self.attention_kernel not in ATTENTION_KERNELS:
             raise ValueError(
                 f"attention_kernel={self.attention_kernel!r}; the port takes "
                 f"one of {ATTENTION_KERNELS}")
+        if self.remat not in REMAT:
+            raise ValueError(f"remat={self.remat!r}; the port takes one of "
+                             f"{REMAT}")
+        if self.microbatches < 1:
+            raise ValueError(f"microbatches={self.microbatches} < 1")
+
+
+def _default_checkpoint_dir() -> str:
+    return os.path.join(tempfile.gettempdir(), "repro_ckpt")
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """The reference's ``RunConfig``; its default checkpoint directory
+    (``/tmp/repro_ckpt``) lives under the temporary directory that
+    ``TMPDIR`` names."""
+
+    steps: int = 100
+    learning_rate: float = 3e-4
+    warmup_steps: int = 10
+    weight_decay: float = 0.1
+    seed: int = 0
+    checkpoint_every: int = 50
+    checkpoint_dir: str = dataclasses.field(
+        default_factory=_default_checkpoint_dir)
+    log_every: int = 10
 
 
 # --------------------------------------------------------------------------

@@ -1,1 +1,1 @@
-"""The system's core: tier placement, and the int8 compression model."""
+"""The system's core: tier placement, offload, and int8 compression."""

@@ -36,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # kernel family -> the kernels its library holds
 FAMILIES = {"flash_attention": ("flash_attention",),
             "paged_attention": ("paged_attention", "paged_attention_quant"),
-            "quant": ("quantize_pages", "dequantize_pages")}
+            "quant": ("quantize_pages", "dequantize_pages", "quantize",
+                      "dequantize")}
 LAUNCHES: dict[str, int] = {k: 0 for ks in FAMILIES.values() for k in ks}
 
 # name -> {"seconds": build wall time, "log": nvcc's output (ptxas usage)}

@@ -1,37 +1,50 @@
-// Per-(page, kv_head) int8 quantize and dequantize of a KV page pool, for
-// Hopper (sm_90a), written by hand in CUDA C++.
+// Blockwise int8 quantize and dequantize, for Hopper (sm_90a), written by
+// hand in CUDA C++: the per-(page, kv_head) kernels of a KV page pool (K4, K5)
+// and the flat 256-element-block kernels of gradient compression (K6, K7).
 //
-// Replaces the TPU kernels repro/kernels/quant/kernel.py::quantize_pages
-// (_quant_kernel) and ::dequantize_pages (_dequant_kernel), and computes what
-// they compute on a pool laid out (n_pages, page, Hkv, d):
+// Replaces the TPU kernels of repro/kernels/quant/kernel.py, which all run one
+// row body (_quant_kernel, _dequant_kernel) over different row layouts:
+// ::quantize_pages and ::dequantize_pages on a pool laid out (n_pages, page,
+// Hkv, d), ::quantize and ::dequantize on a flat (N,) array cut into rows of
+// 256. Per block:
 //
-//   quantize:   scale[p, h] = max(absmax over the page*d elements of (p, h),
-//               1e-12) / 127;  q = clip(round_half_even(x / scale), -127, 127)
-//   dequantize: out = (float)q * scale[p, h], cast to the output dtype
+//   quantize:   scale = max(absmax over the block, 1e-12) / 127;
+//               q = clip(round_half_even(x / scale), -127, 127)
+//   dequantize: out = (float)q * scale, cast to the output dtype
 //
-// Bit for bit with the plain PyTorch version: the absmax is exact in any
+// Bit for bit with the plain PyTorch versions: the absmax is exact in any
 // order, both divisions are IEEE (this file is built without --use_fast_math
 // and uses neither __fdividef nor a reciprocal multiply), rintf rounds half to
 // even, and bf16 input is widened to fp32 before anything else.
 //
-// What bounds it on an H100 SXM (3.35 TB/s HBM): both are pure streams.
-// quantize at one pager pool (536 pages of 64 x 4 x 128 bf16) reads 35.1 MB
-// and writes 17.6 MB of int8 plus 8.6 KB of scales, 15.7 us at the memory
-// rate; dequantize of the 178 host pages reads 5.8 MB and writes 11.7 MB of
-// bf16, 5.2 us.
+// What bounds them on an H100 SXM (3.35 TB/s HBM): all four are pure streams.
+// quantize_pages at one pager pool (536 pages of 64 x 4 x 128 bf16) reads
+// 35.1 MB and writes 17.6 MB of int8 plus 8.6 KB of scales, 15.7 us at the
+// memory rate; dequantize_pages of the 178 host pages reads 5.8 MB and writes
+// 11.7 MB of bf16, 5.2 us. The flat quantize of yi-9b's largest gradient leaf
+// (48 x 4096 x 11008 bf16, 2.16 G elements) reads 4.33 GB and writes 2.16 GB
+// of int8 and 34 MB of scales, 1.95 ms; its dequantize reads 2.2 GB and writes
+// 8.66 GB of fp32, 3.24 ms.
 //
-// Design. The TPU kernel transposes the pool to (n_pages*Hkv, page*d) rows and
-// broadcasts each scale over 128 lanes; both exist only for the TPU's block
-// layout. Here quantize runs one block per (page, head) and reads the strided
-// rows in place (page rows Hkv*d elements apart, d contiguous): a block-wide
-// absmax (warp shuffles, then one value per warp in shared memory), then a
-// second pass over the same elements, which the block has just brought into
-// L1/L2. Dequantize is elementwise, one thread per element.
+// Design. The TPU kernels transpose the pool to (n_pages*Hkv, page*d) rows and
+// broadcast each scale over 128 lanes; both exist only for the TPU's block
+// layout. Here quantize_pages runs one thread block per (page, head) and reads
+// the strided rows in place (page rows Hkv*d elements apart, d contiguous): a
+// block-wide absmax (warp shuffles, then one value per warp in shared memory),
+// then a second pass over the same elements, which the block has just brought
+// into L1/L2. The flat quantize runs one warp per 256-element block, 8 warps
+// per thread block: each lane loads its 8 elements with 16-byte loads (two
+// float4 or one 8 x bf16 vector, neighbouring lanes on neighbouring
+// addresses), keeps them in registers through a warp-shuffle absmax, and
+// stores its 8 int8 values. Both dequantize kernels are elementwise; the flat
+// one reads 8 int8 values and writes two float4 per thread.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -110,6 +123,90 @@ __global__ void __launch_bounds__(DEQUANT_THREADS)
   }
 }
 
+// Flat quantize (K6): one warp per 256-element block, 8 warps per thread
+// block. Lane l holds 8 elements: for fp32 the float4s at 4l and 128 + 4l, for
+// bf16 the 8-vector at 8l (16-byte loads either way, the warp's loads
+// contiguous).
+constexpr int FLAT_BLOCK = 256;
+constexpr int FLAT_WARPS = 8;
+
+__device__ __forceinline__ void load8(const float* blk, int lane, float v[8]) {
+  const float4 a = reinterpret_cast<const float4*>(blk)[lane];
+  const float4 b = reinterpret_cast<const float4*>(blk + 128)[lane];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* blk, int lane,
+                                      float v[8]) {
+  const uint4 raw = reinterpret_cast<const uint4*>(blk)[lane];
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(FLAT_WARPS * 32)
+    quantize_flat_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
+                         float* __restrict__ scales, long long nb) {
+  const long long b = static_cast<long long>(blockIdx.x) * FLAT_WARPS +
+                      threadIdx.x / 32;
+  if (b >= nb) return;
+  const int lane = threadIdx.x % 32;
+  float v[8];
+  load8(x + b * FLAT_BLOCK, lane, v);
+  float mx = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) mx = fmaxf(mx, fabsf(v[i]));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  const float s = fmaxf(mx, 1e-12f) / 127.0f;
+  int8_t c[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    c[i] = static_cast<int8_t>(fminf(fmaxf(rintf(v[i] / s), -127.f), 127.f));
+  // store where the values were loaded from: 4 + 4 at 4l and 128 + 4l for
+  // fp32, 8 at 8l for bf16
+  int8_t* qblk = q + b * FLAT_BLOCK;
+  const char4 lo = make_char4(c[0], c[1], c[2], c[3]);
+  const char4 hi = make_char4(c[4], c[5], c[6], c[7]);
+  if constexpr (std::is_same_v<T, float>) {
+    reinterpret_cast<char4*>(qblk)[lane] = lo;
+    reinterpret_cast<char4*>(qblk + 128)[lane] = hi;
+  } else {
+    reinterpret_cast<int2*>(qblk)[lane] =
+        make_int2(*reinterpret_cast<const int*>(&lo),
+                  *reinterpret_cast<const int*>(&hi));
+  }
+  if (lane == 0) scales[b] = s;
+}
+
+// Flat dequantize (K7): thread t of the grid-stride loop turns the 8 int8
+// values at 8t into two float4; the 8 share one 256-element block's scale.
+__global__ void __launch_bounds__(DEQUANT_THREADS)
+    dequantize_flat_kernel(const int8_t* __restrict__ q,
+                           const float* __restrict__ scales,
+                           float* __restrict__ out, long long n8) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       t < n8; t += stride) {
+    const int2 raw = reinterpret_cast<const int2*>(q)[t];
+    const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+    const float s = scales[t / (FLAT_BLOCK / 8)];
+    float4* o = reinterpret_cast<float4*>(out) + 2 * t;
+    o[0] = make_float4(static_cast<float>(c[0]) * s, static_cast<float>(c[1]) * s,
+                       static_cast<float>(c[2]) * s, static_cast<float>(c[3]) * s);
+    o[1] = make_float4(static_cast<float>(c[4]) * s, static_cast<float>(c[5]) * s,
+                       static_cast<float>(c[6]) * s, static_cast<float>(c[7]) * s);
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (of x for quantize, of out for
@@ -165,5 +262,52 @@ extern "C" int repro_dequantize_pages(const void* q, const void* scales,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Flat blockwise quantize (K6): x (n,) float32 (dtype 0) or bfloat16 (dtype
+// 1), n a multiple of 256, x 16-byte aligned -> q int8 (n,) (8-byte aligned),
+// scales float32 (n / 256,). Returns the CUDA error code of the launch.
+extern "C" int repro_quantize(const void* x, void* q, void* scales, int dtype,
+                              long long n, void* stream) {
+  if (n <= 0 || n % FLAT_BLOCK != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long nb = n / FLAT_BLOCK;
+  const long long grid = (nb + FLAT_WARPS - 1) / FLAT_WARPS;
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int8_t* qo = static_cast<int8_t*>(q);
+  float* so = static_cast<float*>(scales);
+  switch (dtype) {
+    case 0:
+      quantize_flat_kernel<float><<<static_cast<unsigned>(grid),
+                                    FLAT_WARPS * 32, 0, s>>>(
+          static_cast<const float*>(x), qo, so, nb);
+      break;
+    case 1:
+      quantize_flat_kernel<__nv_bfloat16><<<static_cast<unsigned>(grid),
+                                            FLAT_WARPS * 32, 0, s>>>(
+          static_cast<const __nv_bfloat16*>(x), qo, so, nb);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Flat blockwise dequantize (K7): q int8 (n,) (8-byte aligned), scales
+// float32 (n / 256,) -> out float32 (n,) (16-byte aligned), n a multiple of
+// 256. Returns the CUDA error code of the launch.
+extern "C" int repro_dequantize(const void* q, const void* scales, void* out,
+                                long long n, void* stream) {
+  if (n <= 0 || n % FLAT_BLOCK != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long n8 = n / 8;
+  const long long want = (n8 + DEQUANT_THREADS - 1) / DEQUANT_THREADS;
+  const int blocks = static_cast<int>(want < 132 * 32 ? want : 132 * 32);
+  dequantize_flat_kernel<<<blocks, DEQUANT_THREADS, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(q), static_cast<const float*>(scales),
+      static_cast<float*>(out), n8);
   return static_cast<int>(cudaGetLastError());
 }

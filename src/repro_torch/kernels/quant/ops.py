@@ -1,10 +1,11 @@
-"""Public wrappers for the page quantize/dequantize kernels (K4, K5).
+"""Public wrappers for the quantize/dequantize kernels: the flat blockwise
+``quantize``/``dequantize`` of gradient compression (K6, K7) and the
+per-(page, kv_head) ``quantize_pages``/``dequantize_pages`` of the KV pager
+(K4, K5).
 
 On CUDA tensors they launch the hand-written Hopper kernels
 (``csrc/quant_pages.cu``) on the current stream, or raise; on CPU tensors
-they run the plain versions in ``ref.py``. The flat blockwise
-``quantize``/``dequantize`` of the reference (used by gradient compression)
-are not ported yet.
+they run the plain versions in ``ref.py``.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import torch
 from repro_torch.kernels import (count_launch, launch, load_library,
                                  use_kernel)
 from repro_torch.kernels.quant.ref import (dequantize_pages_ref,
-                                           quantize_pages_ref)
+                                           dequantize_ref,
+                                           quantize_pages_ref, quantize_ref)
 
 LIBRARY = "quant"
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "quant_pages.cu"]
@@ -31,7 +33,83 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + \
             [ctypes.c_void_p]
+    # x, q, scales; dtype, n; stream
+    lib.repro_quantize.restype = ctypes.c_int
+    lib.repro_quantize.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    # q, scales, out; n; stream
+    lib.repro_dequantize.restype = ctypes.c_int
+    lib.repro_dequantize.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong, ctypes.c_void_p]
     return lib
+
+
+FLAT_BLOCK = 256          # the block the flat kernels are built for
+
+
+def _check_flat(name: str, t: torch.Tensor, block: int, align: int) -> None:
+    if t.dim() != 1:
+        raise ValueError(f"{name} must be 1-D (N,); got shape "
+                         f"{tuple(t.shape)}")
+    if t.numel() % block:
+        raise ValueError(f"{name} has {t.numel()} elements, not a multiple "
+                         f"of the block {block}")
+    if block != FLAT_BLOCK:
+        raise ValueError(f"the flat quant kernels take block={FLAT_BLOCK}; "
+                         f"got {block}")
+    if not t.is_contiguous() or t.data_ptr() % align:
+        raise ValueError(f"{name} must be contiguous and {align}-byte "
+                         f"aligned; strides {t.stride()}, address "
+                         f"{t.data_ptr():#x}")
+
+
+def quantize(x: torch.Tensor, block: int = FLAT_BLOCK):
+    """Blockwise int8 quantization of a flat array:
+    x (N,) f32/bf16, N % block == 0 -> (q int8 (N,), scales f32 (N/block,)).
+    The kernel reads bf16 directly and widens in registers."""
+    if not use_kernel(x):
+        if x.dim() != 1 or x.numel() % block:
+            raise ValueError(f"x must be (N,) with N % {block} == 0; got "
+                             f"shape {tuple(x.shape)}")
+        return quantize_ref(x, block)
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"quantize kernel takes float32 or bfloat16; got "
+                        f"{x.dtype}")
+    _check_flat("x", x, block, 16)
+    n = x.numel()
+    q = torch.empty(n, dtype=torch.int8, device=x.device)
+    scales = torch.empty(n // block, dtype=torch.float32, device=x.device)
+    if n == 0:
+        return q, scales
+    launch(_library().repro_quantize, x.data_ptr(), q.data_ptr(),
+           scales.data_ptr(), _DTYPES[x.dtype], n, device=x.device)
+    count_launch("quantize")
+    return q, scales
+
+
+def dequantize(q: torch.Tensor, scales: torch.Tensor,
+               block: int = FLAT_BLOCK) -> torch.Tensor:
+    """Inverse of ``quantize``: (q int8 (N,), scales (N/block,)) -> f32
+    (N,)."""
+    if not use_kernel(q, scales):
+        return dequantize_ref(q, scales, block)
+    if q.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError(f"dequantize kernel takes int8 q and float32 "
+                        f"scales; got {q.dtype}, {scales.dtype}")
+    _check_flat("q", q, block, 8)
+    n = q.numel()
+    if tuple(scales.shape) != (n // block,) or not scales.is_contiguous():
+        raise ValueError(f"scales must be contiguous ({n // block},); got "
+                         f"{tuple(scales.shape)}, strides {scales.stride()}")
+    if q.device != scales.device:
+        raise ValueError(f"q on {q.device}, scales on {scales.device}")
+    out = torch.empty(n, dtype=torch.float32, device=q.device)
+    if n == 0:
+        return out
+    launch(_library().repro_dequantize, q.data_ptr(), scales.data_ptr(),
+           out.data_ptr(), n, device=q.device)
+    count_launch("dequantize")
+    return out
 
 
 def _check_pool(name: str, t: torch.Tensor) -> None:
@@ -98,5 +176,6 @@ def dequantize_pages(q: torch.Tensor, scales: torch.Tensor,
     return out
 
 
-__all__ = ["quantize_pages", "dequantize_pages", "quantize_pages_ref",
+__all__ = ["quantize", "dequantize", "quantize_ref", "dequantize_ref",
+           "quantize_pages", "dequantize_pages", "quantize_pages_ref",
            "dequantize_pages_ref"]

@@ -1,14 +1,18 @@
-"""MCtx: the parallelism config and device threaded through model functions.
+"""MCtx: the parallelism config, device and pod group threaded through
+model functions.
 
 On one card there is no mesh, so the reference's sharding constraints
 (``MCtx.constrain``, ``constrain_kv``) have no counterpart here; they come
-with the slice that ports the mesh.
+with the slice that ports the mesh. ``pod_group`` is the counterpart of a
+``pod`` axis in the reference's mesh: the ``torch.distributed`` process
+group over which the training step averages compressed gradients, or
+None.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -35,6 +39,7 @@ class MCtx:
     parallel: ParallelConfig = ParallelConfig()
     device: torch.device = dataclasses.field(
         default_factory=lambda: torch.device("cpu"))
+    pod_group: Optional[Any] = None     # a ProcessGroup, or None
 
     @property
     def cache_seq_axis(self) -> Optional[str]:

@@ -19,7 +19,7 @@ from repro_torch.models.context import MCtx
 from repro_torch.models.layers import embed_tokens, mlp_apply, rmsnorm, unembed
 from repro_torch.models.params import stack_specs, torch_dtype
 from repro_torch.models.transformer import (Seg, forward_hidden,
-                                            layer_params, segment_plan)
+                                            layer_views, segment_plan)
 
 
 # --------------------------------------------------------------------------
@@ -52,10 +52,8 @@ def _attn_block_dec(p, x, pos, cache, cfg, mctx, *, window):
 
 def seg_decode(p, cache, x, pos, cfg: ModelConfig, mctx: MCtx, seg: Seg):
     """One token through a segment; its stacked cache is updated in place."""
-    for i in range(seg.n):
-        x, _ = _attn_block_dec(layer_params(p, i), x, pos,
-                               layer_params(cache, i), cfg, mctx,
-                               window=seg.window)
+    for lp, lc in zip(layer_views(p, seg.n), layer_views(cache, seg.n)):
+        x, _ = _attn_block_dec(lp, x, pos, lc, cfg, mctx, window=seg.window)
     return x, cache
 
 
@@ -100,7 +98,8 @@ def prefill(params, cfg: ModelConfig, mctx: MCtx, batch: dict,
 
     ``max_len`` sizes the decode cache buffers (0 -> prompt length; pass
     prompt+max_new_tokens for serving)."""
-    x, caches = forward_hidden(params, cfg, mctx, batch, q_chunk=q_chunk)
+    x, caches = forward_hidden(params, cfg, mctx, batch, collect=True,
+                               q_chunk=q_chunk)
     B, S = x.shape[:2]
     if max_len and max_len > S:
         caches = _pad_caches_to(caches, cfg, mctx, B, max_len)

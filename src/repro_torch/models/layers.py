@@ -104,11 +104,45 @@ def embedding_specs(cfg: ModelConfig) -> dict:
 
 def embed_tokens(p: dict, tokens: torch.Tensor, dtype: torch.dtype
                  ) -> torch.Tensor:
-    # gather then cast: the same values as the reference's cast then take,
-    # without a cast copy of the whole table
-    return p["tok"][tokens].to(dtype)
+    # cast then gather, as the reference does: the backward then sums the
+    # rows of repeated tokens in ``dtype`` (a no-op cast when the table is
+    # already in ``dtype``, as in serving and training)
+    return p["tok"].to(dtype)[tokens]
 
 
 def unembed(p: dict, x: torch.Tensor, tied: bool) -> torch.Tensor:
     w = p["tok"].T if tied else p["out"]
     return x @ w.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# Losses
+# --------------------------------------------------------------------------
+
+
+def chunked_ce_loss(x: torch.Tensor, emb_params: dict, labels: torch.Tensor,
+                    tied: bool, chunk: int = 512) -> torch.Tensor:
+    """Cross-entropy over (B, S, d) hidden states, in sequence chunks.
+
+    The unembedding matmul happens per chunk, so the full (B, S, vocab)
+    logits tensor is never built at once (the reference scans the chunks);
+    logits are fp32, the sum over chunks runs in the reference's order.
+    """
+    B, S, d = x.shape
+    chunk = min(chunk, S)
+    n = S // chunk
+    rem = S - n * chunk
+
+    def one(x_c, labels_c):
+        logits = unembed(emb_params, x_c, tied).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1, labels_c[..., None].long())[..., 0]
+        return torch.sum(lse - picked)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        total = total + one(x[:, sl], labels[:, sl])
+    if rem:
+        total = total + one(x[:, n * chunk:], labels[:, n * chunk:])
+    return total / (B * S)

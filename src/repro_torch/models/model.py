@@ -32,9 +32,11 @@ class Model(nn.Module):
     @classmethod
     def create(cls, cfg: ModelConfig,
                parallel: ParallelConfig = ParallelConfig(),
-               device=None) -> "Model":
-        """A model on ``device`` (default ``cuda``; raises without one)."""
-        return cls(cfg, MCtx(parallel, resolve_device(device)))
+               device=None, pod_group=None) -> "Model":
+        """A model on ``device`` (default ``cuda``; raises without one);
+        ``pod_group`` is the process group of the training step's
+        cross-pod gradient mean, or None."""
+        return cls(cfg, MCtx(parallel, resolve_device(device), pod_group))
 
     # -- specs ------------------------------------------------------------
     @property

@@ -37,6 +37,34 @@ def map_specs(fn, tree):
     return {k: map_specs(fn, v) for k, v in tree.items()}
 
 
+def tree_map(fn, *trees):
+    """Apply ``fn`` leaf by leaf to nested dicts of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def tree_flatten(tree, prefix=()) -> list:
+    """[(path, leaf)] of a nested dict in sorted-key order, the order of
+    ``jax.tree.leaves`` on the reference's trees."""
+    if not isinstance(tree, dict):
+        return [(prefix, tree)]
+    return [item for k in sorted(tree)
+            for item in tree_flatten(tree[k], prefix + (k,))]
+
+
+def tree_unflatten(paths, leaves) -> dict:
+    """The nested dict with ``leaves`` at ``paths`` (``tree_flatten``'s
+    inverse)."""
+    out: dict = {}
+    for path, leaf in zip(paths, leaves):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
 def stack_spec(spec: ParamSpec, n: int) -> ParamSpec:
     """Prepend a stacked 'layers' dim."""
     return dataclasses.replace(

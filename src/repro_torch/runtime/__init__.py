@@ -1,1 +1,1 @@
-"""Runtime fault handling (the port has ``StragglerStats`` so far)."""
+"""Runtime fault handling: step supervision, retry, straggler stats."""

@@ -1,4 +1,5 @@
-"""repro_torch stands alone: no jax, no repro, and no silent move to the CPU."""
+"""repro_torch stands alone: no jax, no repro, no ml_dtypes, and no silent
+move to the CPU."""
 
 import pathlib
 import subprocess
@@ -16,20 +17,23 @@ def test_port_imports_neither_jax_nor_repro():
         import pkgutil, sys
         sys.path.insert(0, {str(SRC)!r})
         sys.modules["jax"] = None          # any `import jax` now raises
+        sys.modules["ml_dtypes"] = None    # comes with jax; absent on a card
         import repro_torch
         names = [m.name for m in pkgutil.walk_packages(
             repro_torch.__path__, "repro_torch.")]
         for name in names:
             __import__(name)
         leaked = sorted(m for m in sys.modules
-                        if m == "repro" or m.startswith("repro."))
+                        if m == "repro" or m.startswith("repro.")
+                        or (m.split(".")[0] in ("jax", "ml_dtypes")
+                            and sys.modules[m] is not None))
         assert not leaked, leaked
         print(len(names))
     """)
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20   # every module was imported
+    assert int(proc.stdout.split()[-1]) >= 40   # every module was imported
 
 
 def test_engine_without_device_refuses_a_machine_without_cuda(monkeypatch):
@@ -57,3 +61,29 @@ def test_pager_entry_points_refuse_a_machine_without_cuda(monkeypatch):
         with pytest.raises(RuntimeError,
                            match="no CUDA device is available"):
             call()
+
+
+def test_train_refuses_a_machine_without_cuda(monkeypatch, tmp_path):
+    from repro_torch.config.base import RunConfig, ShapeConfig, get_config
+    from repro_torch.data.synthetic import PrefetchLoader
+    from repro_torch.launch import train as train_mod
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("yi-9b").reduced()
+    shape = ShapeConfig("t", 8, 2, "train")
+    run = RunConfig(steps=1, checkpoint_dir=str(tmp_path))
+    for call in (lambda: train_mod.train(cfg, shape, run),
+                 lambda: PrefetchLoader(cfg, shape),
+                 lambda: train_mod.main(["--reduced", "--steps", "1",
+                                         "--ckpt-dir", str(tmp_path)])):
+        with pytest.raises(RuntimeError,
+                           match="no CUDA device is available"):
+            call()
+
+
+def test_train_cli_runs_on_the_cpu_when_asked(tmp_path, capsys):
+    import json
+    from repro_torch.launch.train import main
+    main(["--reduced", "--steps", "2", "--batch", "2", "--seq", "16",
+          "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["final_loss"] > 0
