@@ -73,7 +73,11 @@ while the host has the most memory to pin):
   kv_quant       the kv_quant family's kernel rows (K2 and K3 wall time at
                  the family's small shape) run on the card
   kernels       every ported kernel with its launches on the main path,
-                 its error against its plain version and its times
+                 its error against its plain version and its times: CUDA
+                 events over 20 back-to-back calls (ms, plain_ms,
+                 library_ms) and the device time of the same calls from
+                 torch.profiler (kernel_device_ms, library_device_ms), the
+                 one to compare a call of a few microseconds by
 
 then the card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -106,17 +110,19 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # bf16 only: attention outputs at S=1024 are around 0.05, so 2e-2 absolute
-# alone would pass a broken bf16 load or store. Both sides round the same
-# fp32 result to bf16 and differ by at most one ulp (2**-8 relative) where
-# the summation order tips the rounding, so their relative L2 stays far
-# below 1e-2; a conversion fault gives O(1).
+# alone would pass a broken bf16 load or store. The kernel rounds P to bf16
+# (2**-9 relative) for its P.V product on the tensor cores, where the plain
+# version keeps P in fp32, and both round the output to bf16: that moves the
+# output by a relative L2 of a few 1e-3 at most, while a wrong tile, swizzle
+# or conversion gives O(1).
 BF16_REL_L2 = 1e-2
 # (B, Hq, Hkv, S, d, causal, window): tests/test_kernels.py's sweep, a
-# ragged edge, and the yi-9b prefill shape of the serve phase
+# ragged edge, 8 q heads per KV head at a ragged S with a window that
+# straddles the 128-key tiles, and the yi-9b prefill shape of the serve phase
 SWEEP = [(1, 2, 2, 128, 64, True, 0), (2, 4, 2, 128, 64, True, 0),
          (2, 8, 1, 128, 32, True, 0), (1, 2, 2, 128, 64, False, 0),
          (1, 2, 2, 256, 64, True, 64), (1, 2, 2, 128, 128, True, 0),
-         (1, 4, 2, 100, 16, True, 0)]
+         (1, 4, 2, 100, 16, True, 0), (2, 16, 2, 300, 128, True, 200)]
 YI_PREFILL = (4, 32, 4, 1024, 128, True, 0)
 N_REQUESTS, PROMPT, GEN = 4, 1024, 32
 # (B, Hq, Hkv, d, page, pps): tests/test_kernels.py's paged sweep and
@@ -131,12 +137,15 @@ QUANT_SWEEP = [(12, 8, 2, 16), (7, 16, 4, 32), (32, 16, 1, 128)]
 PAGER = {"seqs": 16, "hq": 32, "hkv": 4, "d": 128, "page": 64,
          "prompt": 2048, "gen": 32, "layers": 48, "weights": (2, 1)}
 # Kernel path vs eager path, last-token logits, bf16 through 48 layers: the
-# two differ only in the fp32 summation order of attention before its bf16
-# cast, i.e. by about one bf16 ulp in some attention outputs, which 48
-# residual layers of random weights amplify. A 48-layer narrow model with
-# 30% of its attention outputs moved by one ulp drifted by 1.3e-2 (relative
-# L2); a wrong mask or head mapping gives O(1).
+# kernel takes P in bf16 for its tensor-core P.V (the eager path keeps P in
+# fp32) and sums in another order, so a good share of its bf16 attention
+# outputs sit one ulp from the eager path's, and 48 residual layers of
+# random weights amplify that. A 48-layer narrow model with 30% of its
+# attention outputs moved by one ulp drifted by 1.3e-2 (relative L2); a
+# wrong mask or head mapping gives O(1).
 LOGITS_REL_L2 = 3e-2
+# the serve phase finds K1's device time by this part of its kernel's name
+K1_KERNEL = "flash_fwd_kernel"
 # K6/K7: tests/test_kernels.py's sweep, one block, an odd block count, and
 # yi-9b's largest gradient leaf (the stacked w_gate / w_up / w_down)
 FLAT_SWEEP = [2048, 65536, 256, 7 * 256]
@@ -178,6 +187,38 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms_per_call(fn, iters: int = 20, warmup: int = 3,
+                       kernels_per_call: int | None = 1) -> dict:
+    """Device time of ``fn`` per call from torch.profiler over ``iters``
+    back-to-back calls. Unlike ``cuda_ms`` it leaves out the host's time
+    between launches, which a call of a few microseconds on the device can
+    take longer than. The profiler's schedule runs one warm-up cycle of the
+    same calls before the recorded one. Where a call is known to launch
+    ``kernels_per_call`` kernels (a wrapper of the port launches one), the
+    time is the recorded kernels' mean times that count, so a kernel the
+    profiler misses does not lower it; with None (a library call, which may
+    split its work over several kernels) it is the recorded total over
+    ``iters``. ``kernels`` is how many it recorded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        for cycle in ("warm-up", "recorded"):
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            if cycle == "warm-up":
+                prof.step()
+    total, _ = device_time(prof)
+    n = sum(e.count for e in _device_events(prof))
+    ms = total / iters if kernels_per_call is None or n == 0 else \
+        total / n * kernels_per_call
+    return {"ms": ms, "kernels": n, "calls": iters}
+
+
 def attention_bound(shape, dtype: str) -> dict:
     """Least time for one flash attention call: q, k, v read once and o
     written once, against the products the mask leaves (4 * d FLOP per
@@ -217,14 +258,23 @@ def profile_device(fn):
 def device_time(prof) -> tuple[float, dict]:
     """(ms summed over every kernel, {kernel name: its device ms}) of a
     finished torch.profiler run."""
-    from torch.autograd import DeviceType
     by_kernel = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:    # CPU ops repeat their
-            continue                            # kernels' device time
+    for e in _device_events(prof):
         by_kernel[e.key] = by_kernel.get(e.key, 0.0) + \
             e.self_device_time_total / 1e3
     return sum(by_kernel.values()), by_kernel
+
+
+def _device_events(prof) -> list:
+    """The device's kernels and copies among a finished torch.profiler
+    run's key averages: not the CPU ops (they repeat their kernels' device
+    time), nor the spans a profiler step or annotation draws on the device
+    track (they cover kernels that are counted already)."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("ProfilerStep")]
 
 
 def device_ms(by_kernel: dict, name: str) -> float:
@@ -305,19 +355,29 @@ def phase_kernel() -> dict:
     bad = [c for c in cases if not c["ok"]]
 
     q, k, v = _qkv(YI_PREFILL, "bfloat16", gen)
+
+    def kern():
+        return flash_attention(q, k, v, causal=True)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
     timing = {
-        "kernel_ms": cuda_ms(lambda: flash_attention(q, k, v, causal=True)),
+        "kernel_ms": cuda_ms(kern),
+        "kernel_device": device_ms_per_call(kern),
         "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v,
                                                         causal=True)),
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)),
+        "library_ms": cuda_ms(library),
+        "library_device": device_ms_per_call(library, kernels_per_call=None),
     }
     bound = attention_bound(YI_PREFILL, "bfloat16")
     timing.update(bound_us=bound["bound_ms"] * 1e3,
                   bound_by=bound["bound_by"], flops=bound["flops"],
                   bytes=bound["bytes"],
                   tflops=bound["flops"] / timing["kernel_ms"] / 1e9,
-                  roofline_share=bound["bound_ms"] / timing["kernel_ms"])
+                  roofline_share=bound["bound_ms"] / timing["kernel_ms"],
+                  roofline_share_device=bound["bound_ms"]
+                  / timing["kernel_device"]["ms"])
     yi_bf16 = next(c for c in cases if c["dtype"] == "bfloat16"
                    and c["shape"] == list(YI_PREFILL))
     out = {"phase": "kernel", "kernel": "flash_attention", "cases": cases,
@@ -506,9 +566,15 @@ def phase_paged_kernels() -> dict:
     timing = {}
     for name, (kern, plain, bnd, library) in calls.items():
         ms = cuda_ms(kern)
-        timing[name] = {"kernel_ms": ms, "plain_ms": cuda_ms(plain),
-                        "library_ms": cuda_ms(library) if library else None,
-                        **bnd, "bound_share": bnd["bound_us"] / 1e3 / ms}
+        dev = device_ms_per_call(kern)
+        timing[name] = {
+            "kernel_ms": ms, "kernel_device": dev,
+            "plain_ms": cuda_ms(plain),
+            "library_ms": cuda_ms(library) if library else None,
+            "library_device": device_ms_per_call(
+                library, kernels_per_call=None) if library else None,
+            **bnd, "bound_share": bnd["bound_us"] / 1e3 / ms,
+            "bound_share_device": bnd["bound_us"] / 1e3 / dev["ms"]}
     timing["dequantize_pages"]["library_bitwise"] = bool(torch.equal(
         deq_library(), dequantize_pages_ref(hq, hs, kp.dtype)))
     pager_err = {c["kernel"]: c["max_abs_err"] for c in attn_cases
@@ -798,7 +864,7 @@ def phase_serve() -> dict:
     n_prof = 4
     handoff, pre_dev, pre_kernels = profile_device(
         lambda: engine.prefill(reqs))
-    pre_flash = device_ms(pre_kernels, "flash_fwd_kernel")
+    pre_flash = device_ms(pre_kernels, K1_KERNEL)
     _, dec_dev, _ = profile_device(lambda: engine.decode(
         dataclasses.replace(handoff, max_new=n_prof)))
     dec_dev /= n_prof
@@ -823,6 +889,10 @@ def phase_serve() -> dict:
            "argmax_agree_kernel_vs_eager": argmax_agree,
            "sample": r0.tokens[:8]}
     emit(out)
+    if pre_flash <= 0:
+        raise AssertionError(f"no device time under a kernel named "
+                             f"{K1_KERNEL!r} in the profiled prefill: "
+                             f"{sorted(pre_kernels)}")
     if rel_l2 > LOGITS_REL_L2:
         raise AssertionError(f"kernel-path logits differ from the eager "
                              f"path's: relative L2 {rel_l2} > "
@@ -873,16 +943,22 @@ def phase_train_kernels() -> dict:
                 timing = {
                     "quantize": {
                         "kernel_ms": cuda_ms(lambda: quantize(x)),
+                        "kernel_device": device_ms_per_call(
+                            lambda: quantize(x)),
                         "plain_ms": cuda_ms(lambda: quantize_ref(x),
                                             iters=5, warmup=1),
-                        "library_ms": None,
+                        "library_ms": None, "library_device": None,
                         **flat_quant_bound(n, x.element_size(),
                                            "quantize")},
                     "dequantize": {
                         "kernel_ms": cuda_ms(lambda: dequantize(qr, sr)),
+                        "kernel_device": device_ms_per_call(
+                            lambda: dequantize(qr, sr)),
                         "plain_ms": cuda_ms(lambda: dequantize_ref(qr, sr),
                                             iters=5, warmup=1),
                         "library_ms": cuda_ms(deq_library),
+                        "library_device": device_ms_per_call(
+                            deq_library, kernels_per_call=None),
                         "library_bitwise": bool(torch.equal(
                             deq_library().view(-1), dequantize_ref(qr, sr))),
                         **flat_quant_bound(n, x.element_size(),
@@ -1186,6 +1262,18 @@ PAGED_SOURCES = {
 }
 
 
+def _device_cols(t: dict) -> dict:
+    """A kernel's and its library call's device ms per call, and how many
+    kernels the profiler recorded over how many calls."""
+    lib = t["library_device"]
+    return {"kernel_device_ms": t["kernel_device"]["ms"],
+            "library_device_ms": lib["ms"] if lib else None,
+            "device_kernels_recorded": {
+                "kernel": [t["kernel_device"]["kernels"],
+                           t["kernel_device"]["calls"]],
+                "library": [lib["kernels"], lib["calls"]] if lib else None}}
+
+
 def kernels_line(kern: dict, serve: dict, paged: dict, pager: dict,
                  flat: dict, compressed: dict) -> dict:
     """Every ported kernel: launches on its main path, agreement with its
@@ -1199,7 +1287,8 @@ def kernels_line(kern: dict, serve: dict, paged: dict, pager: dict,
         "launches": serve["launches"]["flash_attention"],
         "matched": all(c["ok"] for c in kern["cases"]),
         "max_abs_err": yi["max_abs_err"],
-        "ms": yi["kernel_ms"], "plain_ms": yi["plain_ms"],
+        "ms": yi["kernel_ms"], **_device_cols(yi),
+        "plain_ms": yi["plain_ms"],
         "bound_ms": yi["bound_us"] / 1e3, "bound_by": yi["bound_by"],
         "library_ms": yi["library_ms"]}]
     matched = {
@@ -1220,7 +1309,8 @@ def kernels_line(kern: dict, serve: dict, paged: dict, pager: dict,
             "replaces": replaces, "launches": pager["launches"][name],
             "matched": matched[name],
             "max_abs_err": paged["pager_shape_max_abs_err"][name],
-            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "ms": t["kernel_ms"], **_device_cols(t),
+            "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
     for name, line in (("quantize", 42), ("dequantize", 127)):
@@ -1232,7 +1322,8 @@ def kernels_line(kern: dict, serve: dict, paged: dict, pager: dict,
             "launches": compressed["launches"][name],
             "matched": all(c[f"{name}_bitwise"] for c in flat["cases"]),
             "max_abs_err": flat["max_abs_err"][name],
-            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "ms": t["kernel_ms"], **_device_cols(t),
+            "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
     return {"kernels": rows}

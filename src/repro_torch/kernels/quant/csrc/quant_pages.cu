@@ -38,6 +38,19 @@
 // addresses), keeps them in registers through a warp-shuffle absmax, and
 // stores its 8 int8 values. Both dequantize kernels are elementwise; the flat
 // one reads 8 int8 values and writes two float4 per thread.
+//
+// dequantize_pages (K5) is a 16-byte stream: one thread per 16 consecutive
+// int8 values, one 16-byte load and two 16-byte bf16 stores (four float4 for
+// fp32), the grid sized to the work. Since d % 16 == 0 the 16 values share a
+// scale, found once per thread from the d-row r as (r / (page*Hkv))*Hkv +
+// r % Hkv in 32-bit arithmetic (64-bit past 2^31 elements). Its first design
+// moved one byte per thread per step of a grid-stride loop with two 64-bit
+// divisions per element, and ran near 10% of its bound. Shapes with d % 16 != 0
+// and q or out not 16-byte aligned run that scalar kernel, so K5 takes every
+// pool it took before.
+//
+// What they leave undone: no TMA bulk copies, and quantize_pages reads each
+// (page, head) block twice (the second time mostly from L1/L2).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -106,6 +119,44 @@ __global__ void __launch_bounds__(QUANT_THREADS)
   }
 }
 
+// Page dequantize (K5), the vector path: thread t turns the 16 int8 values
+// at 16t into 16 outputs (one 16-byte load; two 16-byte stores of bf16 or
+// four float4). d % 16 == 0, so the 16 lie in one d-row r = 16t / d of one
+// (page, head) and share its scale. I is int when the pool has fewer than
+// 2^31 elements.
+template <typename T, typename I>
+__global__ void __launch_bounds__(DEQUANT_THREADS)
+    dequantize_pages_vec_kernel(const int8_t* __restrict__ q,
+                                const float* __restrict__ scales,
+                                T* __restrict__ out, I n16, int page_hkv,
+                                int hkv, int d16) {
+  const I t = static_cast<I>(blockIdx.x) * DEQUANT_THREADS + threadIdx.x;
+  if (t >= n16) return;
+  const I r = t / d16;
+  const float s = scales[(r / page_hkv) * hkv + r % hkv];
+  const int4 raw = reinterpret_cast<const int4*>(q)[t];
+  const int8_t* c = reinterpret_cast<const int8_t*>(&raw);
+  float v[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) v[i] = static_cast<float>(c[i]) * s;
+  if constexpr (std::is_same_v<T, float>) {
+    float4* o = reinterpret_cast<float4*>(out) + 4 * t;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      o[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+  } else {
+    __nv_bfloat162 h[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    uint4* o = reinterpret_cast<uint4*>(out) + 2 * t;
+    o[0] = *reinterpret_cast<const uint4*>(&h[0]);
+    o[1] = *reinterpret_cast<const uint4*>(&h[4]);
+  }
+}
+
+// Page dequantize (K5), the scalar path: any d, any alignment; one element
+// per thread per step of a grid-stride loop.
 template <typename T>
 __global__ void __launch_bounds__(DEQUANT_THREADS)
     dequantize_pages_kernel(const int8_t* __restrict__ q,
@@ -238,6 +289,44 @@ extern "C" int repro_quantize_pages(const void* x, void* q, void* scales,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+template <typename T, typename I>
+cudaError_t dequantize_pages_vec(const int8_t* q, const float* scales,
+                                 T* out, long long n, int page, int hkv,
+                                 int d, cudaStream_t s) {
+  const long long n16 = n / 16;
+  const long long blocks = (n16 + DEQUANT_THREADS - 1) / DEQUANT_THREADS;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  dequantize_pages_vec_kernel<T, I>
+      <<<static_cast<unsigned>(blocks), DEQUANT_THREADS, 0, s>>>(
+          q, scales, out, static_cast<I>(n16), page * hkv, hkv, d / 16);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dequantize_pages_any(const int8_t* q, const float* scales,
+                                 T* out, long long n, int page, int hkv,
+                                 int d, cudaStream_t s) {
+  const bool vec = d % 16 == 0 &&
+                   (reinterpret_cast<uintptr_t>(q) |
+                    reinterpret_cast<uintptr_t>(out)) % 16 == 0;
+  if (vec && n < (1LL << 31))
+    return dequantize_pages_vec<T, int>(q, scales, out, n, page, hkv, d, s);
+  if (vec)
+    return dequantize_pages_vec<T, long long>(q, scales, out, n, page, hkv,
+                                              d, s);
+  const long long want = (n + DEQUANT_THREADS - 1) / DEQUANT_THREADS;
+  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+  dequantize_pages_kernel<T><<<blocks, DEQUANT_THREADS, 0, s>>>(
+      q, scales, out, n, page, hkv, d);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Runs the vector path when d % 16 == 0 and q and out are 16-byte aligned,
+// the scalar path otherwise; the same function either way.
 extern "C" int repro_dequantize_pages(const void* q, const void* scales,
                                       void* out, int dtype, int n_pages,
                                       int page, int hkv, int d,
@@ -245,25 +334,21 @@ extern "C" int repro_dequantize_pages(const void* q, const void* scales,
   if (n_pages <= 0 || page <= 0 || hkv <= 0 || d <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long n = static_cast<long long>(n_pages) * page * hkv * d;
-  const long long want = (n + DEQUANT_THREADS - 1) / DEQUANT_THREADS;
-  const int blocks = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* qi = static_cast<const int8_t*>(q);
   const float* si = static_cast<const float*>(scales);
   switch (dtype) {
     case 0:
-      dequantize_pages_kernel<float><<<blocks, DEQUANT_THREADS, 0, s>>>(
-          qi, si, static_cast<float*>(out), n, page, hkv, d);
-      break;
+      return static_cast<int>(dequantize_pages_any<float>(
+          qi, si, static_cast<float*>(out), n, page, hkv, d, s));
     case 1:
-      dequantize_pages_kernel<__nv_bfloat16><<<blocks, DEQUANT_THREADS, 0, s>>>(
-          qi, si, static_cast<__nv_bfloat16*>(out), n, page, hkv, d);
-      break;
+      return static_cast<int>(dequantize_pages_any<__nv_bfloat16>(
+          qi, si, static_cast<__nv_bfloat16*>(out), n, page, hkv, d, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
+
 
 // Flat blockwise quantize (K6): x (n,) float32 (dtype 0) or bfloat16 (dtype
 // 1), n a multiple of 256, x 16-byte aligned -> q int8 (n,) (8-byte aligned),

@@ -18,6 +18,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
+from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
 
 # tests/test_kernels.py's tolerances and sweep
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -148,3 +149,76 @@ def test_kernel_refuses_what_it_does_not_take_on_card(case):
     with pytest.raises((TypeError, ValueError)):
         flash_attention(q, q, q)
     assert kernels.LAUNCHES["flash_attention"] == before
+
+
+def _model_layout(B, H, S, d, gen, pad=0, offset=0):
+    """A bf16 (B, S, H, d) tensor viewed as (B, H, S, d), as attn_forward
+    passes it; ``pad`` elements after each row of H * d and ``offset``
+    elements before the first make strides and pointers that are not
+    16-byte multiples."""
+    buf = torch.randn(B, S, offset + H * d + pad, generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    return buf[..., offset:offset + H * d].unflatten(-1, (H, d)) \
+        .transpose(1, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Hq,Hkv,S,d,causal,window", [
+    (2, 16, 2, 256, 128, True, 0),       # GQA, 8 q heads per KV head
+    (1, 8, 1, 300, 128, True, 0),        # S not a multiple of the q tile
+    (1, 8, 2, 384, 64, True, 100),       # a window straddling KV tiles
+    (1, 4, 4, 200, 128, False, 130),     # bidirectional, windowed
+    *((1, 8, 2, 160, d, True, 0) for d in HEAD_DIMS),   # every head dim
+])
+def test_tensor_core_kernel_bf16_on_card(B, Hq, Hkv, S, d, causal, window):
+    """The bf16 kernel (wgmma) on the model's (B, S, H, d) layout against
+    the plain version: the sweep's bf16 tolerance and relative L2 1e-2."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(S + d)
+    q = _model_layout(B, Hq, S, d, g)
+    k, v = (_model_layout(B, Hkv, S, d, g) for _ in range(2))
+    before = kernels.LAUNCHES["flash_attention"]
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    assert out.stride() == q.stride()
+    o = out.float()
+    r = flash_attention_ref(q, k, v, causal=causal, window=window).float()
+    torch.testing.assert_close(o, r, rtol=TOL["bfloat16"],
+                               atol=TOL["bfloat16"])
+    assert ((o - r).norm() / r.norm()).item() <= 1e-2
+
+
+@pytest.mark.gpu
+def test_tensor_core_kernel_mixed_layouts_on_card():
+    """q contiguous (B, H, S, d), k and v (B, S, H, d) views: the copies
+    take the three layouts together and agree all the same."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q = torch.randn(2, 8, 320, 128, generator=g, device="cuda").to(
+        torch.bfloat16)
+    k = _model_layout(2, 2, 320, 128, g)
+    v = _model_layout(2, 2, 320, 128, g)
+    out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    o, r = out.float(), flash_attention_ref(q, k, v).float()
+    torch.testing.assert_close(o, r, rtol=TOL["bfloat16"],
+                               atol=TOL["bfloat16"])
+    assert ((o - r).norm() / r.norm()).item() <= 1e-2
+
+
+@pytest.mark.gpu
+def test_tensor_core_kernel_unaligned_layout_on_card():
+    """Row strides and a pointer that are not 16-byte multiples: the bf16
+    kernel loads element by element and agrees all the same."""
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    q = _model_layout(2, 8, 200, 64, g, pad=4)
+    k = _model_layout(2, 2, 200, 64, g, pad=4, offset=1)
+    v = _model_layout(2, 2, 200, 64, g, offset=3)
+    out = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    o, r = out.float(), flash_attention_ref(q, k, v).float()
+    torch.testing.assert_close(o, r, rtol=TOL["bfloat16"],
+                               atol=TOL["bfloat16"])
+    assert ((o - r).norm() / r.norm()).item() <= 1e-2

@@ -138,3 +138,26 @@ def test_kernels_refuse_what_they_do_not_take_on_card():
     with pytest.raises(ValueError):
         dequantize_pages(q, s[:2])
     assert kernels.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,offset", [
+    *((s, 0) for s in SHAPES), ((178, 64, 4, 128), 0),   # the 16-byte path
+    ((12, 8, 2, 24), 0),                 # d % 16 != 0: the scalar path
+    ((7, 16, 4, 32), 1),                 # q 1 byte off alignment: scalar
+])
+def test_dequantize_pages_paths_bitwise_on_card(shape, offset, dtype):
+    """K5 bit for bit with its plain version on its 16-byte vector path
+    and on its scalar path."""
+    _card()
+    qr, sr = quantize_pages_ref(_torch(_pages(shape), dtype, "cuda"))
+    buf = torch.empty(qr.numel() + offset, dtype=torch.int8, device="cuda")
+    q = buf[offset:].view(shape)
+    q.copy_(qr)
+    before = kernels.LAUNCHES["dequantize_pages"]
+    out = dequantize_pages(q, sr, out_dtype=getattr(torch, dtype))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dequantize_pages"] == before + 1
+    assert torch.equal(out, dequantize_pages_ref(qr, sr,
+                                                 getattr(torch, dtype)))
