@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                       # every phase
     python3 chip_smoke.py --only serve,pager    # just those, after the build
+    python3 chip_smoke.py --only paged_kernels  # K2-K5 alone, after the build
 
 Phases, one JSON line each, in this order (the train phases come first,
 while the host has the most memory to pin):
@@ -12,7 +13,8 @@ while the host has the most memory to pin):
   build          every kernel family's library (flash attention, paged
                  attention, quant) compiled by nvcc for sm_90a from the
                  repo's .cu sources, all at once; seconds and ptxas
-                 register/spill lines for each
+                 register/spill lines for each, and the tensor-core (HMMA)
+                 instructions in each paged attention kernel's SASS
   train_kernels  K6 and K7 (flat blockwise int8 quantize, dequantize) bit for
                  bit against their plain versions over the reference's sweep
                  (N = 2048, 65536; fp32, bf16), one block, an odd block count
@@ -44,8 +46,10 @@ while the host has the most memory to pin):
                  (a yardstick only; the port never calls it) and the least
                  time the card could take
   paged_kernels  K2 and K3 (paged attention, fp and int8) against their
-                 plain versions over the test sweeps, a batch with a
-                 zero-length row and the pager shape, fp32 and bf16; K4 and
+                 plain versions over the test sweeps, the split kernel's
+                 edge cases (a zero-length row, rows shorter than one split,
+                 a table width that is no multiple of the split count, one
+                 long sequence) and the pager shape, fp32 and bf16; K4 and
                  K5 (page quantize, dequantize) bit for bit over the test
                  shapes and the pager's pool and host-page shapes; the four
                  kernels' times at the pager shape beside their plain
@@ -129,6 +133,20 @@ N_REQUESTS, PROMPT, GEN = 4, 1024, 32
 # tests/test_kv_quant.py's wide GQA case
 PAGED_SWEEP = [(2, 4, 2, 64, 16, 4), (3, 4, 4, 32, 8, 8),
                (1, 8, 1, 128, 32, 2), (2, 16, 2, 128, 64, 3)]
+# (B, Hq, Hkv, d, page, pps, lens): the split kernel's edge cases, as in
+# tests/test_torch_paged_attention.py (a zero-length row, rows shorter than
+# one split, a table width no multiple of the split count, one long sequence
+# in many splits), then the pager's geometry with rows shorter than one
+# split and yi-9b's KV heads over one sequence of 128 pages
+PAGED_SPLIT_CASES = [
+    (3, 8, 2, 64, 16, 4, [37, 0, 64]),
+    (8, 8, 4, 32, 16, 9, [150, 1, 16, 17, 0, 144, 90, 33]),
+    (4, 8, 8, 32, 8, 23, [184, 9, 100, 1]),
+    (1, 8, 2, 32, 16, 40, [637]),
+    (8, 16, 8, 64, 16, 23, None),
+    (16, 32, 4, 128, 64, 33, [2080] * 12 + [200, 64, 65, 1]),
+    (1, 32, 4, 128, 64, 128, [128 * 64 - 17]),
+]
 # (n_pages, page, Hkv, d): tests/test_kv_quant.py's quantize_pages sweep
 QUANT_SWEEP = [(12, 8, 2, 16), (7, 16, 4, 32), (32, 16, 1, 128)]
 # The pager phase: yi-9b's KV geometry (32 query heads, 4 KV heads, head
@@ -194,11 +212,13 @@ def device_ms_per_call(fn, iters: int = 20, warmup: int = 3,
     between launches, which a call of a few microseconds on the device can
     take longer than. The profiler's schedule runs one warm-up cycle of the
     same calls before the recorded one. Where a call is known to launch
-    ``kernels_per_call`` kernels (a wrapper of the port launches one), the
-    time is the recorded kernels' mean times that count, so a kernel the
+    ``kernels_per_call`` kernels (a wrapper of the port launches one; K2
+    and K3 two), the time is the recorded kernels' mean times that count, so
+    a kernel the
     profiler misses does not lower it; with None (a library call, which may
     split its work over several kernels) it is the recorded total over
-    ``iters``. ``kernels`` is how many it recorded."""
+    ``iters``. ``kernels`` is how many it recorded, ``by_kernel`` each
+    kernel's recorded device ms per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(warmup):
@@ -212,11 +232,12 @@ def device_ms_per_call(fn, iters: int = 20, warmup: int = 3,
             torch.cuda.synchronize()
             if cycle == "warm-up":
                 prof.step()
-    total, _ = device_time(prof)
+    total, by_kernel = device_time(prof)
     n = sum(e.count for e in _device_events(prof))
     ms = total / iters if kernels_per_call is None or n == 0 else \
         total / n * kernels_per_call
-    return {"ms": ms, "kernels": n, "calls": iters}
+    return {"ms": ms, "kernels": n, "calls": iters,
+            "by_kernel": {k: t / iters for k, t in by_kernel.items()}}
 
 
 def attention_bound(shape, dtype: str) -> dict:
@@ -293,10 +314,38 @@ def phase_device(smi: str) -> dict:
     return out
 
 
+def sass_hmma(lib: Path) -> dict | None:
+    """{kernel: tensor-core (HMMA) instructions in its SASS} of a built
+    library, by cuobjdump (names demangled by cu++filt); None where the
+    toolkit has no cuobjdump."""
+    bin_dir = Path("/usr/local/cuda/bin")
+    tool = shutil.which("cuobjdump") or str(bin_dir / "cuobjdump")
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        if "Function : " in ln:
+            name = ln.split("Function : ")[1].strip()
+            counts[name] = 0
+        elif name and "HMMA" in ln:
+            counts[name] += 1
+    filt = shutil.which("cu++filt") or str(bin_dir / "cu++filt")
+    if counts and Path(filt).exists():
+        names = subprocess.run([filt], input="\n".join(counts),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        if len(names) == len(counts):
+            counts = dict(zip(names, counts.values()))
+    return counts
+
+
 def phase_build() -> dict:
     """Every kernel family's library, built by nvcc from the repo's .cu
     sources, all families at once (always rebuilt, so the build is shown)."""
-    from repro_torch.kernels import BUILD_INFO, FAMILIES, build_all
+    from repro_torch.kernels import (BUILD_INFO, FAMILIES, build_all,
+                                     library_path)
     t0 = time.perf_counter()
     build_all(force=True)
     libs = []
@@ -310,6 +359,8 @@ def phase_build() -> dict:
                      "sources": [str(s.relative_to(ROOT))
                                  for s in ops.SOURCES],
                      "seconds": info["seconds"], "ptxas": ptxas})
+        if family == "paged_attention":
+            libs[-1]["sass_hmma"] = sass_hmma(library_path(ops.LIBRARY))
     out = {"phase": "build", "wall_s": time.perf_counter() - t0,
            "libraries": libs}
     emit(out)
@@ -477,15 +528,19 @@ def phase_paged_kernels() -> dict:
                                            dequantize_pages_ref,
                                            quantize_pages,
                                            quantize_pages_ref)
+    from repro_torch.kernels.paged_attention.ops import split_plan
     gen = torch.Generator(device="cuda").manual_seed(1)
     ps = pager_shape()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     shapes = [(*s, s[0] * s[5] + 4, None) for s in PAGED_SWEEP]
-    shapes.append((3, 8, 2, 64, 16, 4, 16, [37, 0, 64]))     # zero-length
+    shapes += [(*s[:6], s[0] * s[5] + 4, s[6]) for s in PAGED_SPLIT_CASES]
+    pager_case = len(shapes)
     shapes.append((ps["B"], ps["Hq"], ps["Hkv"], ps["d"], ps["page"],
                    ps["pps"], ps["n_pages"], [ps["tokens"]] * ps["B"]))
     attn_cases, pager_inputs = [], None
     for dtype in ("float32", "bfloat16"):
-        for B, Hq, Hkv, d, page, pps, n_pages, lens in shapes:
+        for i, (B, Hq, Hkv, d, page, pps, n_pages, lens) in \
+                enumerate(shapes):
             if lens is None:
                 lens = torch.randint(1, pps * page + 1, (B,), generator=gen,
                                      device="cuda").tolist()
@@ -505,13 +560,17 @@ def phase_paged_kernels() -> dict:
             for name, (out, ref) in runs.items():
                 case = {"kernel": name, "dtype": dtype,
                         "shape": [B, Hq, Hkv, d, page, pps, n_pages],
+                        "split_per": list(split_plan(B, Hkv, pps, sms)),
+                        "pager_shape": i == pager_case,
                         **_compare(out, ref, dtype)}
+                if i >= len(PAGED_SWEEP):
+                    case["lens"] = lens
                 zero = [i for i, n in enumerate(lens) if n == 0]
                 if zero:
                     case["zero_rows_exact"] = bool((out[zero] == 0).all())
                     case["ok"] = case["ok"] and case["zero_rows_exact"]
                 attn_cases.append(case)
-            if dtype == "bfloat16" and n_pages == ps["n_pages"]:
+            if dtype == "bfloat16" and i == pager_case:
                 pager_inputs = (q, kp, vp, bt, sl, kq, vq, ks, vs)
 
     quant_cases = []
@@ -545,28 +604,29 @@ def phase_paged_kernels() -> dict:
         # one PyTorch call computes K5's function: int8 times fp32, cast to
         # the output dtype as it is stored
         return torch.mul(hq, hs[:, None, :, None], out=hout)
-    # (kernel, plain version, bound, one library call or None)
+    # (kernel, plain version, bound, one library call or None, kernels a
+    # call launches: K2 and K3 a split and a combine kernel)
     calls = {
         "paged_attention": (
             lambda: paged_attention(q, kp, vp, bt, sl),
             lambda: paged_attention_ref(q, kp, vp, bt, sl),
-            paged_attention_bound(q, kp, bt, sl), None),
+            paged_attention_bound(q, kp, bt, sl), None, 2),
         "paged_attention_quant": (
             lambda: paged_attention_quant(q, kq, vq, ks, vs, bt, sl),
             lambda: paged_attention_quant_ref(q, kq, vq, ks, vs, bt, sl),
-            paged_attention_bound(q, kq, bt, sl), None),
+            paged_attention_bound(q, kq, bt, sl), None, 2),
         "quantize_pages": (
             lambda: quantize_pages(kp), lambda: quantize_pages_ref(kp),
-            quant_bound(kp.shape, kp.element_size()), None),
+            quant_bound(kp.shape, kp.element_size()), None, 1),
         "dequantize_pages": (
             lambda: dequantize_pages(hq, hs, out_dtype=kp.dtype),
             lambda: dequantize_pages_ref(hq, hs, kp.dtype),
-            quant_bound(hq.shape, kp.element_size()), deq_library),
+            quant_bound(hq.shape, kp.element_size()), deq_library, 1),
     }
     timing = {}
-    for name, (kern, plain, bnd, library) in calls.items():
+    for name, (kern, plain, bnd, library, per_call) in calls.items():
         ms = cuda_ms(kern)
-        dev = device_ms_per_call(kern)
+        dev = device_ms_per_call(kern, kernels_per_call=per_call)
         timing[name] = {
             "kernel_ms": ms, "kernel_device": dev,
             "plain_ms": cuda_ms(plain),
@@ -578,8 +638,7 @@ def phase_paged_kernels() -> dict:
     timing["dequantize_pages"]["library_bitwise"] = bool(torch.equal(
         deq_library(), dequantize_pages_ref(hq, hs, kp.dtype)))
     pager_err = {c["kernel"]: c["max_abs_err"] for c in attn_cases
-                 if c["dtype"] == "bfloat16" and c["shape"][6] ==
-                 ps["n_pages"]}
+                 if c["dtype"] == "bfloat16" and c["pager_shape"]}
     for name in ("quantize_pages", "dequantize_pages"):
         pager_err[name] = max(
             c["q_max_diff" if name == "quantize_pages" else
@@ -1363,7 +1422,8 @@ def expandable_segments():
         settings("expandable_segments:False")
 
 
-ONLY = {"serve": phase_serve, "pager": phase_pager}
+ONLY = {"serve": phase_serve, "pager": phase_pager,
+        "paged_kernels": phase_paged_kernels}
 
 
 def main(argv=None) -> int:

@@ -19,6 +19,8 @@ from repro_torch.kernels.paged_attention import (paged_attention,
                                                  paged_attention_quant,
                                                  paged_attention_quant_ref,
                                                  paged_attention_ref)
+from repro_torch.kernels.paged_attention.ops import (MAX_PER, block_pages,
+                                                     split_plan)
 from repro_torch.kernels.quant import quantize_pages, quantize_pages_ref
 
 # tests/test_kernels.py's and tests/test_kv_quant.py's tolerances and sweeps
@@ -134,6 +136,123 @@ def test_cpu_tensors_take_the_plain_version():
                                                         bt, sl))
 
 
+# (B, Hq, Hkv, d, page, pps, lens): the split kernel's edge cases: a
+# zero-length row, rows shorter than one split (one position, exactly one
+# page, one page and one position), pps not a multiple of the split count,
+# one long sequence cut into many splits
+SPLIT_CASES = [
+    (3, 8, 2, 64, 16, 4, [37, 0, 64]),
+    (8, 8, 4, 32, 16, 9, [150, 1, 16, 17, 0, 144, 90, 33]),
+    (4, 8, 8, 32, 8, 23, [184, 9, 100, 1]),
+    (1, 8, 2, 32, 16, 40, [637]),
+]
+# SM counts for the plan: an H100's, and small ones that give other splits
+PLAN_SMS = [132, 3]
+
+
+@pytest.mark.parametrize("sms", [132, 16, 3, 1])
+@pytest.mark.parametrize("B,Hkv,pps", [(16, 4, 33), (1, 4, 128), (2, 2, 4),
+                                        (8, 8, 23), (64, 8, 1), (1, 1, 1000)])
+def test_split_plan_covers_every_valid_page_once(sms, B, Hkv, pps):
+    """Every column a sequence uses lies in exactly one block's range, for
+    any length; blocks past ceil(len / page) get nothing; the plan satisfies
+    the kernel's split * per >= pps > (split - 1) * per and per <= MAX_PER,
+    and launches no more blocks than fit on the card at once unless a block
+    would take more than MAX_PER columns."""
+    split, per = split_plan(B, Hkv, pps, sms)
+    assert 1 <= split <= pps and split * per >= pps > (split - 1) * per
+    assert per <= MAX_PER
+    assert split == 1 or B * Hkv * split <= 3 * sms or \
+        -(-pps // (split - 1)) > MAX_PER
+    for n_used in range(pps + 1):
+        cols = [c for s in range(split) for c in block_pages(s, per, n_used)]
+        assert cols == list(range(n_used))
+        for s in range(split):
+            if s * per >= n_used:
+                assert len(block_pages(s, per, n_used)) == 0
+
+
+def _split_merge(q, kp, vp, bt, sl, sms, ks=None, vs=None):
+    """The split kernel's partials and the combine kernel's merge, in plain
+    fp32 PyTorch: block s of each (sequence, kv head) attends over its
+    columns' positions below seq_len with a running max of its own, writing
+    (m, l, acc) (int8 pages: s = scale_k * (q . k), scale_v folded into p
+    after l sums it); the combine merges the partials by log-sum-exp,
+    skipping those with l = 0."""
+    B, Hq, d = q.shape
+    _, page, Hkv, _ = kp.shape
+    G, pps = Hq // Hkv, bt.shape[1]
+    split, per = split_plan(B, Hkv, pps, sms)
+    out = torch.zeros(B, Hq, d)
+    for b in range(B):
+        n = int(sl[b])
+        n_used = min(pps, -(-n // page))
+        for h in range(Hkv):
+            qg = q[b, h * G:(h + 1) * G].float()
+            parts = []
+            for s in range(split):
+                cols = block_pages(s, per, n_used)
+                if len(cols) == 0:
+                    continue
+                pos = torch.arange(cols.start * page,
+                                   min(n, cols.stop * page))
+                pg = bt[b, pos // page].long()
+                k = kp[pg, pos % page, h].float()
+                v = vp[pg, pos % page, h].float()
+                x = qg @ k.T
+                if ks is not None:
+                    x = x * ks[pg, h]
+                x = x * d ** -0.5
+                m = x.amax(-1)
+                p = torch.exp(x - m[:, None])
+                l = p.sum(-1)
+                if vs is not None:
+                    p = p * vs[pg, h]
+                parts.append((m, l, p @ v))
+            if not parts:
+                continue
+            M = torch.stack([m for m, _, _ in parts]).amax(0)
+            L = sum(l * torch.exp(m - M) for m, l, _ in parts)
+            A = sum(a * torch.exp(m - M)[:, None] for m, _, a in parts)
+            out[b, h * G:(h + 1) * G] = A / L[:, None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("sms", PLAN_SMS)
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("B,Hq,Hkv,d,page,pps,lens",
+                         [*((*s, None) for s in FP_SWEEP), *SPLIT_CASES])
+def test_split_then_merge_matches_unsplit_and_reference(sms, quant, B, Hq,
+                                                        Hkv, d, page, pps,
+                                                        lens):
+    """The kernels' split-then-merge, mirrored in plain PyTorch, equals the
+    unsplit plain version and the JAX reference in fp32 (fp and int8
+    pages), with zero-length rows exact zeros."""
+    from repro.kernels.paged_attention import (
+        paged_attention_quant_ref as jax_quant_ref,
+        paged_attention_ref as jax_ref)
+    q, kp, vp, bt, sl = _inputs(B, Hq, Hkv, d, page, pps, lens=lens)
+    tq, tbt, tsl = _torch(q, "float32"), _torch(bt), _torch(sl)
+    if quant:
+        kq, ks = quantize_pages(_torch(kp, "float32"))
+        vq, vs = quantize_pages(_torch(vp, "float32"))
+        got = _split_merge(tq, kq, vq, tbt, tsl, sms, ks, vs)
+        plain = paged_attention_quant_ref(tq, kq, vq, ks, vs, tbt, tsl)
+        want = jax_quant_ref(_jax(q, "float32"),
+                             *(_jax(t.numpy()) for t in (kq, vq, ks, vs)),
+                             _jax(bt), _jax(sl))
+    else:
+        tk, tv = _torch(kp, "float32"), _torch(vp, "float32")
+        got = _split_merge(tq, tk, tv, tbt, tsl, sms)
+        plain = paged_attention_ref(tq, tk, tv, tbt, tsl)
+        want = jax_ref(*(_jax(a, "float32") for a in (q, kp, vp)),
+                       _jax(bt), _jax(sl))
+    for ref in (plain.numpy(), np.asarray(want)):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=2e-5, atol=2e-5)
+    zero = sl == 0
+    assert torch.equal(got[zero], torch.zeros_like(got[zero]))
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -143,8 +262,11 @@ def _card():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,Hq,Hkv,d,page,pps,lens", [
     *((*s, None) for s in QUANT_SWEEP),
-    (3, 8, 2, 64, 16, 4, [37, 0, 64]),            # a zero-length row
+    *SPLIT_CASES,                                 # zero-length, short rows
     (16, 32, 4, 128, 64, 33, [2080] * 16),        # the pager shape
+    # the pager shape with rows shorter than one split (4 pages)
+    (16, 32, 4, 128, 64, 33, [2080] * 12 + [200, 64, 65, 1]),
+    (1, 32, 4, 128, 64, 128, [128 * 64 - 17]),    # one long sequence
 ])
 def test_kernels_match_plain_on_card(dtype, B, Hq, Hkv, d, page, pps, lens):
     _card()
