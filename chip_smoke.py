@@ -51,10 +51,14 @@ while the host has the most memory to pin):
                  a table width that is no multiple of the split count, one
                  long sequence) and the pager shape, fp32 and bf16; K4 and
                  K5 (page quantize, dequantize) bit for bit over the test
-                 shapes and the pager's pool and host-page shapes; the four
-                 kernels' times at the pager shape beside their plain
-                 versions' and their bounds, and K5's beside one torch.mul
-                 call that computes the same function
+                 shapes, a head dim of no whole 16-byte chunks, the pager's
+                 pool and host-page shapes and the pool one element off
+                 16-byte alignment (K4's general path); the four kernels'
+                 times at the pager shape beside their plain versions' and
+                 their bounds, warm (20 calls on one input) and with a cold
+                 L2 (a rotation of distinct inputs, twice the L2 together),
+                 K4's vector and general paths in turns, and K5's beside
+                 one torch.mul call that computes the same function
   serve          ServeEngine for full-width yi-9b (bf16 weights from a
                  seeded CUDA generator) answering 4 requests of
                  1024-(i % 4) prompt tokens and 32 new tokens; K1 must
@@ -94,8 +98,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import importlib
+import itertools
 import json
 import math
 import shutil
@@ -147,8 +153,11 @@ PAGED_SPLIT_CASES = [
     (16, 32, 4, 128, 64, 33, [2080] * 12 + [200, 64, 65, 1]),
     (1, 32, 4, 128, 64, 128, [128 * 64 - 17]),
 ]
-# (n_pages, page, Hkv, d): tests/test_kv_quant.py's quantize_pages sweep
-QUANT_SWEEP = [(12, 8, 2, 16), (7, 16, 4, 32), (32, 16, 1, 128)]
+# (n_pages, page, Hkv, d): tests/test_kv_quant.py's quantize_pages sweep,
+# then a head dim that is no whole number of 16-byte bf16 chunks (K4's
+# general path in bf16)
+QUANT_SWEEP = [(12, 8, 2, 16), (7, 16, 4, 32), (32, 16, 1, 128),
+               (12, 8, 2, 12)]
 # The pager phase: yi-9b's KV geometry (32 query heads, 4 KV heads, head
 # dim 128) in bf16 64-token pages, 16 sequences of 2048 prompt tokens and 32
 # decode steps, 48 layers, pages interleaved 2:1 between HBM and host
@@ -187,6 +196,22 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+def cold_sets(set_bytes: int) -> int:
+    """How many distinct input sets a cold-L2 rotation cycles through: at
+    least three, holding together at least twice the card's L2 cache, so
+    that no call finds its inputs there from an earlier call."""
+    import torch
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 0) \
+        or 50 * 2 ** 20
+    return max(3, -(-2 * l2 // set_bytes))
+
+
+def rotation(calls: list):
+    """One callable that runs ``calls`` in turn, one per call."""
+    it = itertools.cycle(calls)
+    return lambda: next(it)()
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -515,11 +540,22 @@ def pager_shape() -> dict:
             "host_pages": interleave_counts(n_pages, g["weights"])[1]}
 
 
+def offset_copy(x, offset: int):
+    """A contiguous copy of ``x`` that starts ``offset`` elements past the
+    start of a fresh allocation (so off 16-byte alignment for offset 1)."""
+    import torch
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    out = buf[offset:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
 def phase_paged_kernels() -> dict:
     """K2 and K3 against their plain versions over the test sweeps, a batch
     with a zero-length row and the pager shape, in fp32 and bf16; K4 and K5
     bit for bit over the test shapes and the pager's pool and host-page
-    shapes; the four kernels' times at the pager shape."""
+    shapes, K4 on both of its paths; the four kernels' times at the pager
+    shape, warm and with a cold L2."""
     import torch
     from repro_torch.kernels.paged_attention import (
         paged_attention, paged_attention_quant, paged_attention_quant_ref,
@@ -529,6 +565,7 @@ def phase_paged_kernels() -> dict:
                                            quantize_pages,
                                            quantize_pages_ref)
     from repro_torch.kernels.paged_attention.ops import split_plan
+    from repro_torch.kernels.quant.ops import quantize_pages_plan
     gen = torch.Generator(device="cuda").manual_seed(1)
     ps = pager_shape()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -575,19 +612,28 @@ def phase_paged_kernels() -> dict:
 
     quant_cases = []
     n_host = ps["host_pages"]
+    pool_shape = (ps["n_pages"], ps["page"], ps["Hkv"], ps["d"])
+    # (shape, elements the pool starts past a 16-byte boundary): the last
+    # case is the pager pool one element off, which K4 takes on its
+    # general path
     for dtype in ("float32", "bfloat16"):
-        for shape in (*QUANT_SWEEP, (ps["n_pages"], ps["page"], ps["Hkv"],
-                                     ps["d"]),
-                      (n_host, ps["page"], ps["Hkv"], ps["d"])):
+        for shape, offset in (*((s, 0) for s in QUANT_SWEEP),
+                              (pool_shape, 0),
+                              ((n_host, *pool_shape[1:]), 0),
+                              (pool_shape, 1)):
             x = (torch.randn(*shape, generator=gen, device="cuda") * 3) \
                 .to(getattr(torch, dtype))
+            if offset:
+                x = offset_copy(x, offset)
             q, s = quantize_pages(x)
             qr, sr = quantize_pages_ref(x)
             xd = dequantize_pages(qr, sr, out_dtype=x.dtype)
             xr = dequantize_pages_ref(qr, sr, x.dtype)
             torch.cuda.synchronize()
             quant_cases.append({
-                "dtype": dtype, "shape": list(shape),
+                "dtype": dtype, "shape": list(shape), "offset": offset,
+                "k4_path": quantize_pages_plan(x.shape, x.dtype,
+                                               x.data_ptr()).path,
                 "quantize_bitwise": bool(torch.equal(q, qr)
                                          and torch.equal(s, sr)),
                 "dequantize_bitwise": bool(torch.equal(xd, xr)),
@@ -599,6 +645,11 @@ def phase_paged_kernels() -> dict:
     q, kp, vp, bt, sl, kq, vq, ks, vs = pager_inputs
     hq, hs = quantize_pages_ref(kp[:n_host].contiguous())
     hout = torch.empty(hq.shape, dtype=kp.dtype, device="cuda")
+    kp_general = offset_copy(kp, 1)
+    paths = {name: quantize_pages_plan(x.shape, x.dtype, x.data_ptr()).path
+             for name, x in (("vector", kp), ("general", kp_general))}
+    if paths != {"vector": "vector", "general": "general"}:
+        raise AssertionError(f"K4 paths at the pager shape: {paths}")
 
     def deq_library():
         # one PyTorch call computes K5's function: int8 times fp32, cast to
@@ -637,6 +688,75 @@ def phase_paged_kernels() -> dict:
             "bound_share_device": bnd["bound_us"] / 1e3 / dev["ms"]}
     timing["dequantize_pages"]["library_bitwise"] = bool(torch.equal(
         deq_library(), dequantize_pages_ref(hq, hs, kp.dtype)))
+
+    # cold L2: each call of a rotation reads its own inputs, which the
+    # calls since it last ran have pushed out of the L2
+    def randn_like(t):
+        return torch.randn(t.shape, generator=gen, device="cuda").to(t.dtype)
+
+    def int8_like(t):
+        return torch.randint(-127, 128, t.shape, generator=gen,
+                             device="cuda", dtype=torch.int8)
+
+    def pools(n, make, *like):
+        return [[make(t) for t in like] for _ in range(n)]
+    kv_bytes = 2 * kp.numel() * kp.element_size()
+    # name: (call, its input sets, kernels a call launches)
+    cold_inputs = {
+        "paged_attention": (
+            lambda k_, v_: paged_attention(q, k_, v_, bt, sl),
+            pools(cold_sets(kv_bytes), randn_like, kp, vp), 2),
+        "paged_attention_quant": (
+            lambda k_, v_: paged_attention_quant(q, k_, v_, ks, vs, bt, sl),
+            pools(cold_sets(kv_bytes // 2), int8_like, kq, vq), 2),
+        "quantize_pages": (
+            quantize_pages,
+            pools(cold_sets(kv_bytes // 2), randn_like, kp), 1),
+        "dequantize_pages": (
+            lambda h_: dequantize_pages(h_, hs, out_dtype=kp.dtype),
+            pools(cold_sets(hq.numel()), int8_like, hq), 1),
+    }
+    cold = {}
+    for name, (fn, sets, per_call) in cold_inputs.items():
+        cold[name] = rotation([functools.partial(fn, *a) for a in sets])
+        t = timing[name]
+        t["cold_sets"] = len(sets)
+        t["cold_set_bytes"] = sum(x.numel() * x.element_size()
+                                  for x in sets[0])
+        t["kernel_device_cold"] = device_ms_per_call(
+            cold[name], kernels_per_call=per_call)
+        t["bound_share_device_cold"] = \
+            t["bound_us"] / 1e3 / t["kernel_device_cold"]["ms"]
+
+    # K4's vector path and its general path (the first design) at the pager
+    # shape, warm and cold, in turns on this card: vector, general,
+    # general, vector; the general path's cold pools are the vector path's,
+    # one element off alignment
+    warm = {"vector": lambda: quantize_pages(kp),
+            "general": lambda: quantize_pages(kp_general)}
+    runs = {"vector": cold["quantize_pages"],
+            "general": rotation([
+                functools.partial(quantize_pages, offset_copy(x, 1))
+                for x, in cold_inputs["quantize_pages"][1]])}
+    turns = {"warm": {"vector": [], "general": []},
+             "cold": {"vector": [], "general": []}}
+    for path in ("vector", "general", "general", "vector"):
+        turns["warm"][path].append(
+            device_ms_per_call(warm[path])["ms"])
+        turns["cold"][path].append(
+            device_ms_per_call(runs[path])["ms"])
+    k4 = timing["quantize_pages"]
+    timing["quantize_pages_general"] = {
+        "kernel_ms": cuda_ms(warm["general"]),
+        **{k: k4[k] for k in ("bytes", "flops", "bound_us", "bound_by",
+                              "cold_sets", "cold_set_bytes")},
+        "turns_device_ms": turns,
+        "vector_over_general": {
+            w: sum(turns[w]["vector"]) / sum(turns[w]["general"])
+            for w in turns},
+        "bound_share_device_turns": {
+            w: {p: k4["bound_us"] / 1e3 * len(v) / sum(v)
+                for p, v in turns[w].items()} for w in turns}}
     pager_err = {c["kernel"]: c["max_abs_err"] for c in attn_cases
                  if c["dtype"] == "bfloat16" and c["pager_shape"]}
     for name in ("quantize_pages", "dequantize_pages"):
@@ -644,7 +764,7 @@ def phase_paged_kernels() -> dict:
             c["q_max_diff" if name == "quantize_pages" else
               "deq_max_abs_err"] for c in quant_cases
             if c["dtype"] == "bfloat16" and c["shape"][1:] ==
-            [ps["page"], ps["Hkv"], ps["d"]])
+            [ps["page"], ps["Hkv"], ps["d"]] and not c["offset"])
     out = {"phase": "paged_kernels", "pager_shape": ps,
            "attention_cases": attn_cases, "quant_cases": quant_cases,
            "pager_shape_bf16": timing, "pager_shape_max_abs_err": pager_err}
@@ -729,10 +849,15 @@ def phase_pager() -> dict:
             if final:       # the last step runs under the profiler
                 _, dev_ms, by_kernel = profile_device(
                     lambda: step(mode, inputs, last[mode]))
+                # "quantize_pages_kernel" names both of K4's kernels; no
+                # dequantize runs in a decode step
                 dev[mode] = {"device_ms": dev_ms, "kernels_ms": {
                     name: device_ms(by_kernel, key) for name, key in
                     (("paged_attention", "paged_attention_kernel"),
                      ("quantize_pages", "quantize_pages_kernel"))}}
+                dev[mode]["kernels_share"] = {
+                    name: t / dev_ms
+                    for name, t in dev[mode]["kernels_ms"].items()}
                 continue
             t1 = time.perf_counter()
             step(mode, inputs, None)
@@ -1361,17 +1486,24 @@ def kernels_line(kern: dict, serve: dict, paged: dict, pager: dict,
         "dequantize_pages": all(c["dequantize_bitwise"]
                                 for c in paged["quant_cases"]),
     }
+    timing = paged["pager_shape_bf16"]
     for name, (source, replaces) in PAGED_SOURCES.items():
-        t = paged["pager_shape_bf16"][name]
+        t = timing[name]
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": pager["launches"][name],
             "matched": matched[name],
             "max_abs_err": paged["pager_shape_max_abs_err"][name],
             "ms": t["kernel_ms"], **_device_cols(t),
+            "kernel_device_cold_ms": t["kernel_device_cold"]["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+        if name == "quantize_pages":
+            turns = timing["quantize_pages_general"]["turns_device_ms"]
+            rows[-1]["device_ms_in_turns"] = {
+                w: {p: sum(v) / len(v) for p, v in by_path.items()}
+                for w, by_path in turns.items()}
     for name, line in (("quantize", 42), ("dequantize", 127)):
         t = flat["yi_leaf_bf16"][name]
         rows.append({

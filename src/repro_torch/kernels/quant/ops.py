@@ -11,6 +11,7 @@ they run the plain versions in ``ref.py``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from pathlib import Path
 
 import torch
@@ -28,11 +29,17 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 def _library() -> ctypes.CDLL:
     lib = load_library(LIBRARY, SOURCES)
-    # x/q, q/scales, scales/out; dtype, n_pages, page, hkv, d; stream
-    for fn in (lib.repro_quantize_pages, lib.repro_dequantize_pages):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + \
-            [ctypes.c_void_p]
+    # x, q, scales; dtype, n_pages, page, hkv, d, path, threads, chunks;
+    # stream
+    fn = lib.repro_quantize_pages
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + \
+        [ctypes.c_void_p]
+    # q, scales, out; dtype, n_pages, page, hkv, d; stream
+    fn = lib.repro_dequantize_pages
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + \
+        [ctypes.c_void_p]
     # x, q, scales; dtype, n; stream
     lib.repro_quantize.restype = ctypes.c_int
     lib.repro_quantize.argtypes = [ctypes.c_void_p] * 3 + [
@@ -120,10 +127,52 @@ def _check_pool(name: str, t: torch.Tensor) -> None:
         raise ValueError(f"{name} must be contiguous; strides {t.stride()}")
 
 
+QUANT_THREADS = 256       # threads of a K4 block at most (the kernel's)
+VEC_CHUNKS = (1, 2, 4, 8)  # 16-byte chunks a vector-path thread can hold
+_PATHS = {"general": 0, "vector": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class PagesPlan:
+    """How K4 covers one (page, head) block of ``page`` d-rows: on the
+    vector path thread t of ``threads`` holds the 16-byte chunks
+    ``t + k * threads`` for k < ``chunks``, chunk c being d-row
+    ``c // chunks_per_row``, elements ``vec * (c % chunks_per_row)`` on; on
+    the general path ``QUANT_THREADS`` threads loop over the elements."""
+    path: str
+    threads: int = QUANT_THREADS
+    chunks: int = 0
+    vec: int = 1
+    chunks_per_row: int = 0
+
+
+def quantize_pages_plan(shape, dtype: torch.dtype,
+                        address: int) -> PagesPlan:
+    """K4's path for a contiguous pool of ``shape`` (n_pages, page, Hkv, d)
+    and ``dtype`` starting at byte ``address``. The vector path needs whole
+    16-byte chunks (d % 8 == 0 in bf16, d % 4 == 0 in fp32), a 16-byte
+    aligned pool, a (page, head) block of at most ``QUANT_THREADS`` x 8
+    chunks (the registers a thread holds) and a page of fewer than 2^31
+    elements; everything else takes the general path."""
+    _, page, hkv, d = shape
+    vec = 16 // dtype.itemsize
+    if d % vec or address % 16 or page * hkv * d >= 2 ** 31:
+        return PagesPlan("general")
+    cpr = d // vec
+    n_chunks = page * cpr
+    threads = min(QUANT_THREADS, -(-n_chunks // 32) * 32)
+    per = -(-n_chunks // threads)
+    chunks = next((c for c in VEC_CHUNKS if c >= per), None)
+    if chunks is None:
+        return PagesPlan("general")
+    return PagesPlan("vector", threads, chunks, vec, cpr)
+
+
 def quantize_pages(pages: torch.Tensor):
     """Per-(page, kv_head) int8 quantization of a KV page pool:
     (n_pages, page, Hkv, d) f32/bf16 -> (q int8 same shape,
-    scales f32 (n_pages, Hkv))."""
+    scales f32 (n_pages, Hkv)). On CUDA tensors the path is
+    ``quantize_pages_plan``'s."""
     if not use_kernel(pages):
         return quantize_pages_ref(pages)
     _check_pool("pages", pages)
@@ -136,9 +185,11 @@ def quantize_pages(pages: torch.Tensor):
                          device=pages.device)
     if pages.numel() == 0:
         return q, scales
+    plan = quantize_pages_plan(pages.shape, pages.dtype, pages.data_ptr())
     launch(_library().repro_quantize_pages, pages.data_ptr(), q.data_ptr(),
-            scales.data_ptr(), _DTYPES[pages.dtype], n_pages, page, hkv, d,
-            device=pages.device)
+           scales.data_ptr(), _DTYPES[pages.dtype], n_pages, page, hkv, d,
+           _PATHS[plan.path], plan.threads, plan.chunks,
+           device=pages.device)
     count_launch("quantize_pages")
     return q, scales
 

@@ -82,8 +82,9 @@ class ServeEngine:
         if offload_weights:
             raise NotImplementedError(
                 "weight offload to pinned host memory (the reference's "
-                "core/offload.py) is not ported yet; it comes with the "
-                "pager slice")
+                "core/offload.py StreamingParamServer and "
+                "ServeEngine(offload_weights=True)) is not ported yet; it "
+                "comes with slice 4a, serving offload and observability")
         self.cfg = cfg
         self.tracer = tracer
         self.straggler = StragglerStats()

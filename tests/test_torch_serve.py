@@ -79,6 +79,6 @@ def test_cli_serves_on_cpu(tmp_path, capsys):
 
 
 def test_weight_offload_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="pager slice"):
+    with pytest.raises(NotImplementedError, match="slice 4a"):
         serve.ServeEngine(get_config("yi-9b").reduced(), device="cpu",
                           offload_weights=True)
