@@ -4,6 +4,7 @@
     python3 chip_smoke.py                       # every phase
     python3 chip_smoke.py --only serve,pager    # just those, after the build
     python3 chip_smoke.py --only paged_kernels  # K2-K5 alone, after the build
+    python3 chip_smoke.py --only serve,serve_offload  # HBM, then offloaded
 
 Phases, one JSON line each, in this order (the train phases come first,
 while the host has the most memory to pin):
@@ -65,6 +66,26 @@ while the host has the most memory to pin):
                  launch 48 times per prefill; the logits must be finite and
                  the kernel path's last-token logits must agree with the
                  eager path's on the same weights
+  serve_offload  the same engine, requests and seed with
+                 offload_weights=True: the 17.66 GB of bf16 weights pinned
+                 on the host (the phase refuses to start if MemAvailable
+                 cannot hold them beside 8 GB; it never shrinks the model)
+                 and the whole tree fetched to the card on every prefill and
+                 decode call; the tokens must equal the serve phase's
+                 exactly, K1 must launch 48 times in the prefill, every home
+                 leaf must be pinned host memory with no weights on the card
+                 between calls; the run is traced (Tracer, SLOMonitor,
+                 FlightRecorder) and must give a valid Chrome trace with 1
+                 prefill and 32 decode-step spans, 4 SLO observations and an
+                 OpenMetrics text with the serve counters, served once over
+                 HTTP on localhost; then one bare whole-tree fetch (GB/s)
+                 and StreamingParamServer over the 48 stacked layer slices
+                 (ms per layer, GB/s, each layer equal to a device copy, at
+                 most two layers buffered, and the copies overlapping each
+                 layer's MLP products by at least half of the shorter of
+                 the two); prefill, decode step and tokens/s, one
+                 profiled decode step's copy and kernel time, pin time and
+                 peak memory
   pager          PagedKVCache at yi-9b's KV geometry, 48 layers, a bf16 and
                  an int8-cold-tier cache per layer with identical placement
                  (weights 2:1): prefill 16 sequences of 2048 tokens, 32
@@ -80,7 +101,7 @@ while the host has the most memory to pin):
                  on the card: a simulator output, labelled so
   kv_quant       the kv_quant family's kernel rows (K2 and K3 wall time at
                  the family's small shape) run on the card
-  kernels       every ported kernel with its launches on the main path,
+  kernels       every ported kernel with its launches on the main paths,
                  its error against its plain version and its times: CUDA
                  events over 20 back-to-back calls (ms, plain_ms,
                  library_ms) and the device time of the same calls from
@@ -91,6 +112,11 @@ then the card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
 non-zero and prints no result line. Without a CUDA device it exits non-zero
 at once; it has no CPU mode.
+
+Device times come from torch.profiler, which now and then records no device
+event in a window: such a window is recorded again where running it again
+changes nothing that is checked (up to three times, said on stderr), and a
+device time it never recorded is null (not measured), never zero.
 """
 
 from __future__ import annotations
@@ -185,6 +211,12 @@ TRAIN = {"batch": 8, "seq": 128, "steps": 4, "compressed_steps": 2,
 # the profiler, the page cache)
 PIN_HEADROOM = 8e9
 YI_LEAVES = 12               # parameter leaves of a dense yi-9b tree
+# the serve_offload phase: decode steps profiled for the copy's share, and
+# the rows of the MLP products run after each streamed layer to see the
+# copies overlap compute (about the copy's time per layer: 3 x 2 x 16384 x
+# 4096 x 11008 FLOP)
+OFFLOAD_PROFILED_STEPS = 2
+OVERLAP_ROWS = 16384
 
 
 def emit(obj: dict) -> None:
@@ -231,7 +263,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def device_ms_per_call(fn, iters: int = 20, warmup: int = 3,
-                       kernels_per_call: int | None = 1) -> dict:
+                       kernels_per_call: int | None = 1,
+                       attempts: int = 3) -> dict:
     """Device time of ``fn`` per call from torch.profiler over ``iters``
     back-to-back calls. Unlike ``cuda_ms`` it leaves out the host's time
     between launches, which a call of a few microseconds on the device can
@@ -243,24 +276,35 @@ def device_ms_per_call(fn, iters: int = 20, warmup: int = 3,
     profiler misses does not lower it; with None (a library call, which may
     split its work over several kernels) it is the recorded total over
     ``iters``. ``kernels`` is how many it recorded, ``by_kernel`` each
-    kernel's recorded device ms per call."""
+    kernel's recorded device ms per call. A recording that holds no device
+    event is made again, up to ``attempts`` times; after that ``ms`` is None
+    (not measured)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        for cycle in ("warm-up", "recorded"):
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-            if cycle == "warm-up":
-                prof.step()
-    total, by_kernel = device_time(prof)
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            for cycle in ("warm-up", "recorded"):
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                if cycle == "warm-up":
+                    prof.step()
+        total, by_kernel = device_time(prof)
+        if total is not None:
+            break
+        _no_device_events(prof, attempt, attempts)
     n = sum(e.count for e in _device_events(prof))
-    ms = total / iters if kernels_per_call is None or n == 0 else \
-        total / n * kernels_per_call
+    if total is None:
+        ms = None
+    elif kernels_per_call is None:
+        ms = total / iters
+    else:
+        ms = total / n * kernels_per_call
     return {"ms": ms, "kernels": n, "calls": iters,
             "by_kernel": {k: t / iters for k, t in by_kernel.items()}}
 
@@ -288,27 +332,53 @@ def attention_bound(shape, dtype: str) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def profile_device(fn):
+def profile_device(fn, attempts: int = 1):
     """Run ``fn`` under torch.profiler; return (its result, the device time
-    in ms summed over every kernel, {kernel name: its device ms})."""
+    in ms summed over every kernel, {kernel name: its device ms}). A
+    recording that holds no device event is made again, up to ``attempts``
+    times (give more than one only where running ``fn`` again changes
+    nothing that is checked); after that the device time is None (not
+    measured)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = fn()
+    for attempt in range(attempts):
         torch.cuda.synchronize()
-    return (out, *device_time(prof))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        total, by_kernel = device_time(prof)
+        if total is not None:
+            break
+        _no_device_events(prof, attempt, attempts)
+    return out, total, by_kernel
 
 
-def device_time(prof) -> tuple[float, dict]:
+def device_time(prof) -> tuple[float | None, dict]:
     """(ms summed over every kernel, {kernel name: its device ms}) of a
-    finished torch.profiler run."""
+    finished torch.profiler run; (None, {}) where it recorded no device
+    event at all, so that nothing reads a missed recording as zero time."""
     by_kernel = {}
     for e in _device_events(prof):
         by_kernel[e.key] = by_kernel.get(e.key, 0.0) + \
             e.self_device_time_total / 1e3
+    if not by_kernel:
+        return None, {}
     return sum(by_kernel.values()), by_kernel
+
+
+def _no_device_events(prof, attempt: int, attempts: int) -> None:
+    """Say on stderr that a profiler run recorded no device event, where
+    (the line that asked for it), with what it did record, and whether it
+    is made again."""
+    from collections import Counter
+    caller = sys._getframe(2)
+    kinds = Counter(str(e.device_type) for e in prof.key_averages())
+    then = "again" if attempt + 1 < attempts else "device time not measured"
+    print(f"chip_smoke: torch.profiler recorded no device event at "
+          f"{caller.f_code.co_name}:{caller.f_lineno} (attempt "
+          f"{attempt + 1} of {attempts}; its events by device: "
+          f"{dict(kinds)}); {then}", file=sys.stderr, flush=True)
 
 
 def _device_events(prof) -> list:
@@ -323,9 +393,27 @@ def _device_events(prof) -> list:
             and not e.key.startswith("ProfilerStep")]
 
 
-def device_ms(by_kernel: dict, name: str) -> float:
-    """Device ms of the kernels whose name contains ``name``."""
+def device_ms(by_kernel: dict, name: str) -> float | None:
+    """Device ms of the kernels whose name contains ``name``; None where
+    the profiler recorded nothing."""
+    if not by_kernel:
+        return None
     return sum(t for k, t in by_kernel.items() if name in k)
+
+
+def ratio(a, b):
+    """a / b, or None where either was not measured."""
+    return None if a is None or b is None else a / b
+
+
+def less(a, b):
+    """a - b, or None where either was not measured."""
+    return None if a is None or b is None else a - b
+
+
+def _total(times: list):
+    """The sum of ``times``, or None where one was not measured."""
+    return None if None in times else sum(times)
 
 
 def phase_device(smi: str) -> dict:
@@ -452,8 +540,8 @@ def phase_kernel() -> dict:
                   bytes=bound["bytes"],
                   tflops=bound["flops"] / timing["kernel_ms"] / 1e9,
                   roofline_share=bound["bound_ms"] / timing["kernel_ms"],
-                  roofline_share_device=bound["bound_ms"]
-                  / timing["kernel_device"]["ms"])
+                  roofline_share_device=ratio(
+                      bound["bound_ms"], timing["kernel_device"]["ms"]))
     yi_bf16 = next(c for c in cases if c["dtype"] == "bfloat16"
                    and c["shape"] == list(YI_PREFILL))
     out = {"phase": "kernel", "kernel": "flash_attention", "cases": cases,
@@ -685,7 +773,7 @@ def phase_paged_kernels() -> dict:
             "library_device": device_ms_per_call(
                 library, kernels_per_call=None) if library else None,
             **bnd, "bound_share": bnd["bound_us"] / 1e3 / ms,
-            "bound_share_device": bnd["bound_us"] / 1e3 / dev["ms"]}
+            "bound_share_device": ratio(bnd["bound_us"] / 1e3, dev["ms"])}
     timing["dequantize_pages"]["library_bitwise"] = bool(torch.equal(
         deq_library(), dequantize_pages_ref(hq, hs, kp.dtype)))
 
@@ -725,8 +813,8 @@ def phase_paged_kernels() -> dict:
                                   for x in sets[0])
         t["kernel_device_cold"] = device_ms_per_call(
             cold[name], kernels_per_call=per_call)
-        t["bound_share_device_cold"] = \
-            t["bound_us"] / 1e3 / t["kernel_device_cold"]["ms"]
+        t["bound_share_device_cold"] = ratio(
+            t["bound_us"] / 1e3, t["kernel_device_cold"]["ms"])
 
     # K4's vector path and its general path (the first design) at the pager
     # shape, warm and cold, in turns on this card: vector, general,
@@ -752,10 +840,10 @@ def phase_paged_kernels() -> dict:
                               "cold_sets", "cold_set_bytes")},
         "turns_device_ms": turns,
         "vector_over_general": {
-            w: sum(turns[w]["vector"]) / sum(turns[w]["general"])
-            for w in turns},
+            w: ratio(_total(turns[w]["vector"]),
+                     _total(turns[w]["general"])) for w in turns},
         "bound_share_device_turns": {
-            w: {p: k4["bound_us"] / 1e3 * len(v) / sum(v)
+            w: {p: ratio(k4["bound_us"] / 1e3 * len(v), _total(v))
                 for p, v in turns[w].items()} for w in turns}}
     pager_err = {c["kernel"]: c["max_abs_err"] for c in attn_cases
                  if c["dtype"] == "bfloat16" and c["pager_shape"]}
@@ -856,7 +944,7 @@ def phase_pager() -> dict:
                     (("paged_attention", "paged_attention_kernel"),
                      ("quantize_pages", "quantize_pages_kernel"))}}
                 dev[mode]["kernels_share"] = {
-                    name: t / dev_ms
+                    name: ratio(t, dev_ms)
                     for name, t in dev[mode]["kernels_ms"].items()}
                 continue
             t1 = time.perf_counter()
@@ -1046,12 +1134,14 @@ def phase_serve() -> dict:
     # Where the time goes: device time of one prefill and of 4 decode
     # steps of the same batch, against the counted run's wall times.
     n_prof = 4
+    # (a prefill changes nothing, and these decode steps write the same
+    # cache positions when made again)
     handoff, pre_dev, pre_kernels = profile_device(
-        lambda: engine.prefill(reqs))
+        lambda: engine.prefill(reqs), attempts=3)
     pre_flash = device_ms(pre_kernels, K1_KERNEL)
     _, dec_dev, _ = profile_device(lambda: engine.decode(
-        dataclasses.replace(handoff, max_new=n_prof)))
-    dec_dev /= n_prof
+        dataclasses.replace(handoff, max_new=n_prof)), attempts=3)
+    dec_dev = ratio(dec_dev, n_prof)
 
     r0 = results[0]
     steps = sorted(engine.straggler.times[-GEN - n_prof:-n_prof])
@@ -1063,9 +1153,10 @@ def phase_serve() -> dict:
            "decode_step_median_ms": steps[len(steps) // 2] * 1e3,
            "decode_step_max_ms": steps[-1] * 1e3,
            "prefill_device_ms": pre_dev, "prefill_flash_ms": pre_flash,
-           "prefill_idle_share": 1 - pre_dev / r0.prefill_ms,
+           "prefill_idle_share": less(1, ratio(pre_dev, r0.prefill_ms)),
            "decode_device_ms_per_step": dec_dev,
-           "decode_idle_share": 1 - dec_dev / r0.decode_ms_per_tok,
+           "decode_idle_share":
+               less(1, ratio(dec_dev, r0.decode_ms_per_tok)),
            "peak_allocated_gb": peak_gb, "launches": launches,
            "launches_per_prefill": launches["flash_attention"],
            "logits_rel_l2_kernel_vs_eager": rel_l2,
@@ -1073,7 +1164,8 @@ def phase_serve() -> dict:
            "argmax_agree_kernel_vs_eager": argmax_agree,
            "sample": r0.tokens[:8]}
     emit(out)
-    if pre_flash <= 0:
+    out["tokens"] = toks                 # the serve_offload phase's reference
+    if not pre_flash:           # None: the profiler recorded nothing
         raise AssertionError(f"no device time under a kernel named "
                              f"{K1_KERNEL!r} in the profiled prefill: "
                              f"{sorted(pre_kernels)}")
@@ -1081,6 +1173,261 @@ def phase_serve() -> dict:
         raise AssertionError(f"kernel-path logits differ from the eager "
                              f"path's: relative L2 {rel_l2} > "
                              f"{LOGITS_REL_L2}")
+    return out
+
+
+def hbm_tokens(cfg) -> "np.ndarray":
+    """The serve phase's tokens, for a serve_offload phase run without
+    it: the HBM engine on the same seed and requests."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import ServeEngine, make_requests
+    engine = ServeEngine(cfg)
+    results = engine.serve(make_requests(cfg, N_REQUESTS, PROMPT, GEN))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return np.array([r.tokens for r in results])
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _layer_stream(get, n_layers: int, x=None):
+    """``get(i)`` for every layer in order, each layer's MLP products on
+    the rows ``x`` after it when ``x`` is given: the host's seconds to
+    issue it all, and the seconds until the card is done."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_layers):
+        layer = get(i)
+        if x is not None:
+            mlp = layer["mlp"]
+            ((x @ mlp["w_gate"]) * (x @ mlp["w_up"])) @ mlp["w_down"]
+    issued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return issued, time.perf_counter() - t0
+
+
+def phase_serve_offload(serve_tokens=None) -> dict:
+    """Weight-offloaded yi-9b serving: pinned host weights fetched whole on
+    every call, traced; then the bare fetch and the layer stream."""
+    import statistics
+    import tempfile
+    import urllib.request
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.config.base import get_config
+    from repro_torch.core.offload import StreamingParamServer, fetch_to_device
+    from repro_torch.launch.serve import Request, ServeEngine, make_requests
+    from repro_torch.models.params import count_params, tree_flatten, tree_map
+    from repro_torch.models.transformer import model_specs
+    from repro_torch.obs import (NULL_TRACER, BandwidthLedger, FlightRecorder,
+                                 SLOMonitor, Tracer, openmetrics_text,
+                                 serve_openmetrics, validate_chrome_trace,
+                                 write_chrome_trace)
+
+    cfg = get_config("yi-9b")                       # full width, not cut
+    if serve_tokens is None:
+        serve_tokens = hbm_tokens(cfg)
+    gc.collect()                    # the HBM engine and any pinned state
+    torch.cuda.empty_cache()
+    weight_bytes = 2 * count_params(model_specs(cfg))
+    available = mem_available()
+    if available < weight_bytes + PIN_HEADROOM:
+        raise RuntimeError(
+            f"MemAvailable {available / 1e9:.2f} GB cannot hold yi-9b's "
+            f"{weight_bytes / 1e9:.2f} GB of pinned bf16 weights beside "
+            f"{PIN_HEADROOM / 1e9:.0f} GB of headroom; the phase serves the "
+            f"full model or nothing")
+
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg, offload_weights=True)  # draw on cuda, pin
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    home = engine.params_home
+    leaves = [x for _, x in tree_flatten(home)]
+    pinned_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    home_pinned = all(x.device.type == "cpu" and x.is_pinned()
+                      for x in leaves)
+    reqs = make_requests(cfg, N_REQUESTS, PROMPT, GEN)
+    # warm-up on a short request, outside the count and the trace
+    engine.serve([Request(99, reqs[0].prompt[:64], 2)])
+
+    tracer = Tracer()
+    recorder = FlightRecorder(forward=tracer)
+    slo = SLOMonitor()
+    engine.tracer, engine.slo = recorder, slo
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    results = engine.serve(reqs)
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    between_calls_gb = torch.cuda.memory_allocated() / 1e9
+    engine.tracer, engine.slo = NULL_TRACER, None
+    toks = np.array([r.tokens for r in results])
+
+    # what the run observed, exported and checked as the CLI writes it
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "serve_offload_trace.json"
+        write_chrome_trace(tracer, str(path))
+        trace = json.loads(path.read_text())
+    validate_chrome_trace(trace)
+    validate_chrome_trace(recorder.snapshot(reason="serve_offload"))
+    spans = [e["name"] for e in trace["traceEvents"] if e["ph"] == "B"]
+    slo_report = slo.report()["serve"]
+    om = openmetrics_text(metrics=tracer.metrics,
+                          ledger=BandwidthLedger.from_tracer(tracer))
+    server = serve_openmetrics(lambda: om, port=0)
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{server.server_port}/metrics",
+                timeout=30) as resp:
+            scraped = resp.read().decode("utf-8")
+    finally:
+        server.shutdown()
+        server.server_close()
+
+    # one profiled decode-step window: the copy's share of the device time
+    handoff = engine.prefill(reqs)
+    # (made again, these steps write the same cache positions)
+    _, dec_dev, dec_by = profile_device(lambda: engine.decode(
+        dataclasses.replace(handoff, max_new=OFFLOAD_PROFILED_STEPS)),
+        attempts=3)
+    del handoff
+    copy_ms = device_ms(dec_by, "Memcpy")
+    per = OFFLOAD_PROFILED_STEPS
+
+    # the bare whole-tree fetch, synced, three times
+    fetch_s = []
+    dev = None
+    for _ in range(3):
+        dev = None
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dev = fetch_to_device(home, "cuda")
+        torch.cuda.synchronize()
+        fetch_s.append(time.perf_counter() - t1)
+
+    # StreamingParamServer over the 48 stacked layer slices
+    layers = cfg.num_layers
+    stacked = home["decoder"]
+
+    def layer(tree, i):
+        return tree_map(lambda x: x[i], tree)
+    layer_bytes = sum(x[0].numel() * x.element_size()
+                      for _, x in tree_flatten(stacked))
+    slices_pinned = all(x[i].is_pinned() for _, x in tree_flatten(stacked)
+                        for i in range(layers))
+    streams = [_layer_stream(StreamingParamServer(stacked, layers,
+                                                  layer).get, layers)
+               for _ in range(3)]
+    # do the copies overlap compute? the stream with each layer's MLP
+    # products after its get, against the products alone (on a device
+    # copy) and the stream alone
+    rows = torch.randn(OVERLAP_ROWS, cfg.d_model, dtype=torch.bfloat16,
+                       device="cuda")
+    compute_s = statistics.median(_layer_stream(
+        lambda i: layer(dev["decoder"], i), layers, rows)[1]
+        for _ in range(3))
+    both_s = statistics.median(_layer_stream(
+        StreamingParamServer(stacked, layers, layer).get, layers, rows)[1]
+        for _ in range(3))
+    del rows
+    check = StreamingParamServer(stacked, layers, layer)
+    equal, most_buffered = True, 0
+    for i in range(layers):
+        got = check.get(i)
+        most_buffered = max(most_buffered, len(check._buf) + 1)
+        equal &= all(torch.equal(x, _at(dev["decoder"], path)[i])
+                     for path, x in tree_flatten(got))
+    del dev, got, check
+
+    r0 = results[0]
+    steps = sorted(engine.straggler.times[-GEN - per:-per])
+    stream_s = statistics.median(s for _, s in streams)
+    overlap = (stream_s + compute_s - both_s) / min(stream_s, compute_s)
+    fetch_med = statistics.median(fetch_s)
+    out = {"phase": "serve_offload", "arch": cfg.name,
+           "layers": cfg.num_layers, "requests": N_REQUESTS,
+           "prompt_len": max(len(r.prompt) for r in reqs), "gen": GEN,
+           "weights_gb": weight_bytes / 1e9, "pinned_gb": pinned_bytes / 1e9,
+           "mem_available_before_gb": available / 1e9,
+           "init_s": init_s, "home_pinned": home_pinned,
+           "prefill_ms": r0.prefill_ms,
+           "decode_ms_per_tok": r0.decode_ms_per_tok,
+           "tokens_per_s": N_REQUESTS * 1e3 / r0.decode_ms_per_tok,
+           "decode_step_median_ms": steps[len(steps) // 2] * 1e3,
+           "decode_step_max_ms": steps[-1] * 1e3,
+           "decode_device_ms_per_step": ratio(dec_dev, per),
+           "decode_copy_device_ms_per_step": ratio(copy_ms, per),
+           "decode_copy_share_of_device": ratio(copy_ms, dec_dev),
+           "fetch_s": fetch_s,
+           "fetch_gb_per_s": weight_bytes / fetch_med / 1e9,
+           "fetch_share_of_decode_step":
+               fetch_med * 1e3 / r0.decode_ms_per_tok,
+           "stream_layer_mb": layer_bytes / 1e6,
+           "stream_s": [s for _, s in streams],
+           "stream_host_issue_s": [h for h, _ in streams],
+           "stream_ms_per_layer": stream_s * 1e3 / layers,
+           "stream_gb_per_s": layer_bytes * layers / stream_s / 1e9,
+           "stream_slices_pinned": slices_pinned,
+           "stream_compute_rows": OVERLAP_ROWS,
+           "mlp_compute_only_s": compute_s, "stream_with_mlp_s": both_s,
+           "stream_compute_overlap": overlap,
+           "stream_equal": bool(equal), "stream_most_buffered": most_buffered,
+           "peak_allocated_gb": peak_gb,
+           "allocated_between_calls_gb": between_calls_gb,
+           "launches": launches,
+           "launches_per_prefill": launches.get("flash_attention", 0),
+           "tokens_equal_serve": bool(np.array_equal(toks, serve_tokens)),
+           "prefill_spans": spans.count("serve.prefill"),
+           "decode_step_spans": spans.count("serve.decode_step"),
+           "slo_observations": slo_report["count"],
+           "openmetrics_scraped_equal": scraped == om,
+           "sample": r0.tokens[:8]}
+    emit(out)
+    del engine, home, leaves, stacked
+    gc.collect()                    # the pinned weights, unregistered
+    torch.cuda.empty_cache()
+    failed = []
+    if not out["tokens_equal_serve"]:
+        failed.append(f"tokens differ from the serve phase's: {toks} vs "
+                      f"{serve_tokens}")
+    if out["launches_per_prefill"] != cfg.num_layers:
+        failed.append(f"flash_attention launched "
+                      f"{out['launches_per_prefill']} times in the "
+                      f"offloaded prefill; expected {cfg.num_layers}")
+    if not (home_pinned and slices_pinned):
+        failed.append("weights not in pinned host memory")
+    if between_calls_gb > 0.05 * weight_bytes / 1e9:
+        failed.append(f"{between_calls_gb:.2f} GB left on the card between "
+                      f"calls")
+    if not equal or most_buffered > 2:
+        failed.append(f"streamed layers: equal={equal}, up to "
+                      f"{most_buffered} buffered")
+    if overlap < 0.5:
+        failed.append(f"the layer copies do not overlap compute: stream "
+                      f"{stream_s} s, compute {compute_s} s, both {both_s} "
+                      f"s (overlap {overlap})")
+    if (out["prefill_spans"], out["decode_step_spans"],
+            out["slo_observations"]) != (1, GEN, N_REQUESTS):
+        failed.append(f"trace/SLO counts {out['prefill_spans']}, "
+                      f"{out['decode_step_spans']}, "
+                      f"{out['slo_observations']}")
+    if f"serve_requests_total {N_REQUESTS}" not in om or \
+            f"serve_decode_steps_total {GEN}" not in om or \
+            not out["openmetrics_scraped_equal"]:
+        failed.append("OpenMetrics text lacks the serve counters or the "
+                      "scrape differs from it")
+    if failed:
+        raise AssertionError("; ".join(failed))
     return out
 
 
@@ -1289,12 +1636,14 @@ def phase_train() -> tuple[dict, dict]:
         "profiled_step": {"step": TRAIN["steps"] - 1,
             "wall_ms": prof_wall_ms, "device_ms": dev_ms,
             "memcpy_htod_ms": h2d_ms, "memcpy_dtoh_ms": d2h_ms,
-            "kernels_ms": dev_ms - h2d_ms - d2h_ms,
-            "idle_share": 1 - dev_ms / prof_wall_ms,
-            "idle_share_of_median_step": 1 - dev_ms / med_ms,
-            "htod_gb_per_s": per_step["bytes_to_device"] / h2d_ms / 1e6,
-            "dtoh_gb_per_s": per_step["bytes_to_host"] / d2h_ms / 1e6,
-            "link_share_of_median_step": (h2d_ms + d2h_ms) / med_ms},
+            "kernels_ms": less(less(dev_ms, h2d_ms), d2h_ms),
+            "idle_share": less(1, ratio(dev_ms, prof_wall_ms)),
+            "idle_share_of_median_step": less(1, ratio(dev_ms, med_ms)),
+            "htod_gb_per_s": ratio(per_step["bytes_to_device"] / 1e6,
+                                   h2d_ms),
+            "dtoh_gb_per_s": ratio(per_step["bytes_to_host"] / 1e6, d2h_ms),
+            "link_share_of_median_step": ratio(_total([h2d_ms, d2h_ms]),
+                                               med_ms)},
         "optimizer_link_gb_per_s_wall": (
             (per_step["bytes_to_device"] + per_step["bytes_to_host"])
             / (med_ms / 1e3) / 1e9),
@@ -1458,17 +1807,19 @@ def _device_cols(t: dict) -> dict:
                 "library": [lib["kernels"], lib["calls"]] if lib else None}}
 
 
-def kernels_line(kern: dict, serve: dict, paged: dict, pager: dict,
-                 flat: dict, compressed: dict) -> dict:
-    """Every ported kernel: launches on its main path, agreement with its
-    plain version, and its times at the main path's shape."""
+def kernels_line(kern: dict, serve: dict, offload: dict, paged: dict,
+                 pager: dict, flat: dict, compressed: dict) -> dict:
+    """Every ported kernel: launches on its main paths (K1: the HBM and the
+    offloaded engines' counted runs), agreement with its plain version, and
+    its times at the main path's shape."""
     yi = kern["yi_prefill_bf16"]
     rows = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
-        "launches": serve["launches"]["flash_attention"],
+        "launches": serve["launches"]["flash_attention"]
+        + offload["launches"]["flash_attention"],
         "matched": all(c["ok"] for c in kern["cases"]),
         "max_abs_err": yi["max_abs_err"],
         "ms": yi["kernel_ms"], **_device_cols(yi),
@@ -1531,10 +1882,11 @@ def phase_all() -> None:
     kern = phase_kernel()
     paged = phase_paged_kernels()
     serve = phase_serve()
+    offload = phase_serve_offload(serve.pop("tokens"))
     pager = phase_pager()
     phase_paged_sim()
     phase_kv_quant()
-    emit(kernels_line(kern, serve, paged, pager, flat, compressed))
+    emit(kernels_line(kern, serve, offload, paged, pager, flat, compressed))
 
 
 @contextlib.contextmanager
@@ -1554,8 +1906,8 @@ def expandable_segments():
         settings("expandable_segments:False")
 
 
-ONLY = {"serve": phase_serve, "pager": phase_pager,
-        "paged_kernels": phase_paged_kernels}
+ONLY = {"serve": phase_serve, "serve_offload": phase_serve_offload,
+        "pager": phase_pager, "paged_kernels": phase_paged_kernels}
 
 
 def main(argv=None) -> int:
@@ -1579,8 +1931,14 @@ def main(argv=None) -> int:
     dev = phase_device(smi)
     phase_build()
     if only:
+        tokens = None
         for name in only:
-            ONLY[name]()
+            if name == "serve_offload":
+                phase_serve_offload(tokens)
+            elif name == "serve":
+                tokens = phase_serve()["tokens"]
+            else:
+                ONLY[name]()
     else:
         phase_all()
     print(smi, flush=True)

@@ -1,8 +1,6 @@
 """Contention-aware interconnect fabric simulator.
 
-The port's copy of the reference's ``repro/fabric``; its named
-interference scenarios (``scenarios.py``) come with the qos and
-interference slice.
+The port's copy of the reference's ``repro/fabric``.
 
 Layers (bottom-up):
   topology   — device/memory/switch graph, typed links, latency routing
@@ -20,6 +18,12 @@ from repro_torch.fabric.contention import (Flow, effective_bandwidth,
                                            loaded_latency_multi,
                                            max_min_rates,
                                            route_loaded_latency)
+from repro_torch.fabric.scenarios import (ALL_SCENARIOS, ScenarioResult,
+                                          bidirectional_fight,
+                                          noisy_neighbor_pool,
+                                          offload_vs_prefetch,
+                                          qos_prefetch_over_bulk,
+                                          run_scenario)
 from repro_torch.fabric.sim import FlowResult, makespan, simulate, \
     single_flow_time
 from repro_torch.fabric.systems import SYSTEMS, System, cxl_pool, \
@@ -34,4 +38,7 @@ __all__ = [
     "Flow", "max_min_rates", "effective_bandwidth", "loaded_latency_multi",
     "route_loaded_latency",
     "FlowResult", "simulate", "makespan", "single_flow_time",
+    "ScenarioResult", "run_scenario", "ALL_SCENARIOS",
+    "noisy_neighbor_pool", "offload_vs_prefetch", "bidirectional_fight",
+    "qos_prefetch_over_bulk",
 ]

@@ -13,6 +13,15 @@ through the hand-written flash attention kernel by default
 Unlike the reference's, ``--reduced`` is off by default: the command runs
 the architecture at its full width.
 
+``--offload-weights`` keeps the weights in pinned host memory and fetches
+the whole tree to the device on every prefill and decode call, the
+paper's synchronous offload mode (§6.1.5), whose step time the host link
+sets. ``--trace-out``, ``--recorder-out``, ``--openmetrics-out`` and
+``--metrics-listen`` write or serve what the run observed:
+
+  python -m repro_torch.launch.serve --reduced --device cpu \
+      --offload-weights --trace-out t.json
+
 ``DecodeScheduler`` is the deadline-aware decode loop over a tier-split
 ``PagedKVCache``: it plans host->HBM page prefetches through the fabric
 simulator and admits each sequence into the decode batch at the first step
@@ -23,8 +32,8 @@ two pagers' pools live on the device, the schedule is a simulation on the
 
   python -m repro_torch.launch.serve --paged-sim --system gh200
 
-Weight offload and the ``--disagg-sim`` / ``--degrade-sim`` modes come
-with later slices.
+The ``--disagg-sim`` / ``--degrade-sim`` modes and calibration profiles
+come with later slices.
 """
 
 from __future__ import annotations
@@ -32,15 +41,19 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import sys
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.config.base import ParallelConfig, get_config
+from repro_torch.core.offload import fetch_to_device, put_tree
 from repro_torch.models.context import resolve_device
 from repro_torch.models.model import Model
-from repro_torch.obs.trace import NULL_TRACER, Tracer
+from repro_torch.obs import (NULL_TRACER, BandwidthLedger, FlightRecorder,
+                             Tracer, openmetrics_text, serve_openmetrics,
+                             write_chrome_trace, write_openmetrics)
 from repro_torch.runtime.fault import StragglerStats
 
 
@@ -69,32 +82,49 @@ class ServeEngine:
                  parallel: ParallelConfig = ParallelConfig(
                      attention_kernel="kernel"),
                  offload_weights: bool = False, rng_seed: int = 0,
-                 device=None, tracer=NULL_TRACER):
+                 device=None, tracer=NULL_TRACER, slo=None):
         """An engine for ``cfg`` on ``device`` (default ``cuda``; raises if
         there is none) with bf16 weights drawn from a generator seeded with
         ``rng_seed`` on that device.
 
+        With ``offload_weights`` the drawn weights move to the host tier
+        (pinned memory on a CUDA device; raises if pinning fails) and the
+        device copy is freed; every prefill and decode call then fetches
+        the whole tree to the device and drops it after use.
+
         Observability as in the reference: wall-clock prefill/decode-step
         spans plus a ``StragglerStats`` fed one sample per decode step,
-        whose summary lands in the metrics snapshot. The reference's
-        ``slo`` monitor comes with the serve control plane.
+        whose summary lands in the metrics snapshot. ``slo`` optionally
+        attaches an ``obs.SLOMonitor``: one latency observation per
+        finished request (class "serve").
         """
-        if offload_weights:
-            raise NotImplementedError(
-                "weight offload to pinned host memory (the reference's "
-                "core/offload.py StreamingParamServer and "
-                "ServeEngine(offload_weights=True)) is not ported yet; it "
-                "comes with slice 4a, serving offload and observability")
         self.cfg = cfg
         self.tracer = tracer
+        self.slo = slo
         self.straggler = StragglerStats()
         self.model = Model.create(cfg, parallel, device)
         gen = torch.Generator(device=self.model.device).manual_seed(rng_seed)
         self.model.init(gen, dtype=torch.bfloat16)
+        self.offload = offload_weights
+        if offload_weights:
+            self.model.set_params(put_tree(self.model.params, "pinned_host",
+                                           self.device))
 
     @property
     def device(self) -> torch.device:
         return self.model.device
+
+    @property
+    def params_home(self) -> dict:
+        """The weights where they live between calls: on the device, or
+        in the host tier when offloaded."""
+        return self.model.params
+
+    def _params(self) -> dict:
+        """Paper-faithful sync fetch when offloaded (copy-on-demand)."""
+        if self.offload:
+            return fetch_to_device(self.params_home, self.device)
+        return self.params_home
 
     @torch.inference_mode()
     def prefill(self, requests: list[Request]) -> "PrefillHandoff":
@@ -115,9 +145,10 @@ class ServeEngine:
         max_new = max(r.max_new for r in requests)
         with tracer.span("serve.prefill", track=("serving", "engine"),
                          cat="serve", batch=B, prompt_len=plen):
+            params = self._params()
             batch = {"tokens": torch.from_numpy(toks).to(self.device)}
-            logits, cache = self.model.prefill(self.model.params, batch,
-                                               plen + max_new)
+            logits, cache = self.model.prefill(params, batch, plen + max_new)
+            del params           # a fetched tree lives for one call only
             tok = torch.argmax(logits, dim=-1)
             _sync(self.device)
         prefill_ms = (time.perf_counter() - t0) * 1e3
@@ -131,7 +162,6 @@ class ServeEngine:
         requests = handoff.requests
         B = len(requests)
         tracer = self.tracer
-        params = self.model.params
         cache, tok = handoff.cache, handoff.tok
         outs = [[] for _ in requests]
         t0 = time.perf_counter()
@@ -140,8 +170,10 @@ class ServeEngine:
             with tracer.span("serve.decode_step",
                              track=("serving", "engine"), cat="serve",
                              step=s, batch=B):
+                params = self._params()
                 logits, cache = self.model.decode(params, cache, tok,
                                                   handoff.plen + s)
+                del params       # dropped before the next step's fetch
                 tok = torch.argmax(logits, dim=-1)
                 # one device read for the whole batch, not B scalar reads
                 tok_host = tok.cpu().numpy()
@@ -159,6 +191,10 @@ class ServeEngine:
             m.set("serve.decode_ms_per_tok", ms_per_tok)
             for k, v in self.straggler.summary().items():
                 m.set(f"serve.straggler.{k}", v)
+        if self.slo is not None:
+            lat = (handoff.prefill_ms + ms_per_tok * handoff.max_new) * 1e-3
+            for r in requests:
+                self.slo.observe("serve", lat)
         return [Result(r.rid, outs[i][:r.max_new], handoff.prefill_ms,
                        ms_per_tok)
                 for i, r in enumerate(requests)]
@@ -474,6 +510,9 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--offload-weights", action="store_true",
+                    help="keep the weights in pinned host memory and fetch "
+                         "the whole tree to the device on every call")
     ap.add_argument("--paged-sim", action="store_true",
                     help="simulated fp16-vs-int8 paged decode scheduling "
                          "report (no model run)")
@@ -481,23 +520,62 @@ def main(argv=None):
                     help="fabric preset the --paged-sim schedule runs on")
     ap.add_argument("--step-us", type=float, default=100.0,
                     help="decode step time of the --paged-sim schedule")
+    ap.add_argument("--trace-out", default=None, metavar="TRACE.json",
+                    help="write a Chrome trace-event file (open in "
+                         "https://ui.perfetto.dev) covering the run: "
+                         "per-link utilization tracks, flow lifecycles, "
+                         "pager and scheduler/engine spans")
     ap.add_argument("--metrics-out", default=None, metavar="METRICS.json",
                     help="write the metrics snapshot "
                          "(MetricsRegistry.to_json) here")
+    ap.add_argument("--recorder-out", default=None, metavar="FLIGHT.json",
+                    help="attach a FlightRecorder (bounded ring buffer) "
+                         "and write its snapshot here")
+    ap.add_argument("--recorder-capacity", type=int, default=8192,
+                    help="flight-recorder ring size in events")
+    ap.add_argument("--openmetrics-out", default=None,
+                    metavar="METRICS.txt",
+                    help="write an OpenMetrics text exposition snapshot: "
+                         "metric counters/gauges plus the bandwidth "
+                         "ledger's per-(link, QoS, purpose, request "
+                         "class) byte charges and per-link efficiency")
+    ap.add_argument("--metrics-listen", default=None, metavar="HOST:PORT",
+                    help="after the run, serve the same OpenMetrics "
+                         "snapshot over HTTP at /metrics until "
+                         "interrupted (a scrape endpoint)")
     args = ap.parse_args(argv)
 
-    tracer = Tracer() if args.metrics_out else NULL_TRACER
+    tracer = NULL_TRACER
+    if args.trace_out or args.metrics_out or args.openmetrics_out \
+            or args.metrics_listen:
+        tracer = Tracer()
+    recorder = None
+    if args.recorder_out:
+        # events flow through the ring; an enabled full tracer (from
+        # --trace-out/--metrics-out) still sees everything via forward=
+        recorder = FlightRecorder(
+            capacity=args.recorder_capacity,
+            forward=tracer if tracer.enabled else None)
+        tracer = recorder
+    # --trace-out and the ledger want the full history: the forwarded
+    # tracer when a ring-buffer recorder sits in front, the tracer itself
+    # otherwise
+    full = recorder.forward if (recorder is not None
+                                and recorder.forward is not None) \
+        else tracer
+
     if args.paged_sim:
         print(json.dumps(simulate_paged_decode(
             requests=args.requests, gen=args.gen, system_name=args.system,
             step_us=args.step_us, tracer=tracer, device=args.device),
             indent=2))
-        _write_metrics(args.metrics_out, tracer)
+        _flush_obs(args, tracer, recorder, full)
         return
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    engine = ServeEngine(cfg, device=args.device, tracer=tracer)
+    engine = ServeEngine(cfg, offload_weights=args.offload_weights,
+                         device=args.device, tracer=tracer)
     reqs = make_requests(cfg, args.requests, args.prompt, args.gen)
     results = engine.serve(reqs)
     tps = args.requests * args.gen / (results[0].decode_ms_per_tok
@@ -508,18 +586,56 @@ def main(argv=None):
         "prefill_ms": results[0].prefill_ms,
         "decode_ms_per_tok": results[0].decode_ms_per_tok,
         "tokens_per_s": tps,
-        "offloaded": False,
+        "offloaded": args.offload_weights,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "sample": results[0].tokens[:8],
     }))
-    _write_metrics(args.metrics_out, tracer)
+    _flush_obs(args, tracer, recorder, full)
 
 
-def _write_metrics(path, tracer) -> None:
-    if path:
-        with open(path, "w") as f:
+def _render_openmetrics(tracer, full) -> str:
+    return openmetrics_text(metrics=tracer.metrics,
+                            ledger=BandwidthLedger.from_tracer(full))
+
+
+def _flush_obs(args, tracer, recorder, full) -> None:
+    """Write what the run observed where the CLI's flags ask; with
+    ``--metrics-listen``, then serve it until interrupted. Notes go to
+    stderr, so the report stays the last line of stdout."""
+    if args.trace_out:
+        write_chrome_trace(full, args.trace_out)
+        print(f"# trace: {args.trace_out} ({len(full.events)} events; "
+              "open in https://ui.perfetto.dev)", file=sys.stderr)
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
             json.dump(tracer.metrics.to_json(), f, indent=2, sort_keys=True)
+        print(f"# metrics: {args.metrics_out}", file=sys.stderr)
+    if args.recorder_out:
+        trace = recorder.dump(args.recorder_out)
+        meta = trace.get("metadata", {})
+        print(f"# flight recorder: {args.recorder_out} "
+              f"(reason={meta.get('reason')!r}, {meta.get('events')} "
+              f"events, {meta.get('dropped')} dropped; open in "
+              "https://ui.perfetto.dev)", file=sys.stderr)
+    if args.openmetrics_out:
+        write_openmetrics(args.openmetrics_out,
+                          _render_openmetrics(tracer, full))
+        print(f"# openmetrics: {args.openmetrics_out}", file=sys.stderr)
+    if args.metrics_listen:
+        host, _, port = args.metrics_listen.rpartition(":")
+        server = serve_openmetrics(
+            lambda: _render_openmetrics(tracer, full),
+            host=host or "127.0.0.1", port=int(port))
+        print(f"# metrics: http://{host or '127.0.0.1'}:"
+              f"{server.server_port}/metrics (Ctrl-C to stop)",
+              file=sys.stderr, flush=True)
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            server.shutdown()
+            server.server_close()
 
 
 if __name__ == "__main__":

@@ -13,4 +13,6 @@ HBM_BANDWIDTH = 819e9          # bytes/s per chip
 HBM_CAPACITY = 16 * 2**30      # bytes per chip
 PCIE_BANDWIDTH = 32e9          # bytes/s host<->chip (PCIe Gen4 x16 class)
 HOST_DRAM_CAPACITY = 512 * 2**30   # bytes per host
+ICI_LINK_BANDWIDTH = 50e9      # bytes/s per ICI link (~50 GB/s/link)
+DCN_BANDWIDTH_PER_HOST = 25e9  # bytes/s per host across pods (DCN)
 CHIPS_PER_HOST = 4
