@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only serve,pager    # just those, after the build
     python3 chip_smoke.py --only paged_kernels  # K2-K5 alone, after the build
     python3 chip_smoke.py --only serve,serve_offload  # HBM, then offloaded
+    python3 chip_smoke.py --only degrade,disagg # the pager's consumers
 
 Phases, one JSON line each, in this order (the train phases come first,
 while the host has the most memory to pin):
@@ -97,6 +98,34 @@ while the host has the most memory to pin):
                  bf16 round trip must be exact and the int8 one must equal
                  plain quantize-then-dequantize on the host rows and move
                  nothing else
+  degrade        the degradation loop with its pagers on the card: the
+                 resilience family's summary (three scenarios, react and
+                 baseline) equal to the CPU's but for the detector's
+                 wall-clock overhead, within the family's thresholds; the
+                 headline (host link x0.5 at round 4) at yi-9b's KV
+                 geometry (16 x 2048 + 32 tokens), react and baseline,
+                 reports equal to the CPU's, each arm's wall on the card;
+                 then the evacuation measured at the pager phase's geometry
+                 over 48 layers, a bf16 and an int8 cache per layer,
+                 spilled (host rows then zeroed on the card):
+                 retier((1, 0)) (the hot-removal evacuation) and
+                 retier((2, 1)) + spill_cold_pages() (the re-spill), bytes,
+                 seconds and GB/s, beside the migration time the recovery
+                 controller would charge on the tpu_v5e and gh200 presets
+                 (simulated); the bf16 pools must come back bit for bit,
+                 the int8 host rows equal plain quantize-then-dequantize
+                 of the pre-spill rows, the re-spilled host rows equal the
+                 pools' rows (bf16) or their plain quantization (int8),
+                 exactly 2 K5 launches per layer on the int8 evacuation
+                 and 2 K4 on its re-spill, and every new pinned tensor one
+                 the caches hold
+  disagg         disaggregated prefill/decode with the decode node's pager
+                 on the card: the disagg family's summary (overlap speedup
+                 at least 1.2, no deadline violation), run_disagg_serve at
+                 yi-9b's KV geometry on cxl_pool, fp and int8, traced, and
+                 the qos family's decode admission, each equal to the
+                 CPU's; the qos summary and interference rows; every time
+                 simulated
   paged_sim      simulate_paged_decode on the gh200 preset with its pools
                  on the card: a simulator output, labelled so
   kv_quant       the kv_quant family's kernel rows (K2 and K3 wall time at
@@ -1780,6 +1809,310 @@ def phase_train_resume() -> dict:
     return out
 
 
+def _json_text(x) -> str:
+    return json.dumps(x, sort_keys=True, default=str)
+
+
+def _same_reports(what: str, card, cpu) -> None:
+    """A simulated report from the card's run must equal the CPU run's as
+    JSON text (its values depend on the fabric and the page counts, not on
+    where the pages live)."""
+    if _json_text(card) != _json_text(cpu):
+        raise AssertionError(f"{what}: the card's report differs from the "
+                             f"CPU's:\n{_json_text(card)}\n"
+                             f"{_json_text(cpu)}")
+
+
+def _pinned_storages() -> set:
+    """Data pointers of every pinned CPU tensor alive in the process."""
+    import warnings
+
+    import torch
+    out = set()
+    with warnings.catch_warnings():
+        # isinstance on some of torch's module proxies warns of deprecation
+        warnings.simplefilter("ignore", FutureWarning)
+        for obj in gc.get_objects():
+            try:
+                if isinstance(obj, torch.Tensor) \
+                        and obj.device.type == "cpu" and obj.is_pinned():
+                    out.add(obj.untyped_storage().data_ptr())
+            except (RuntimeError, ReferenceError):
+                continue
+    return out
+
+
+def phase_degrade() -> dict:
+    """The degradation loop on the card: (a) the resilience family's
+    summary, its pagers' pools on the card, equal to the CPU's but for the
+    detector's wall-clock overhead and within the family's thresholds;
+    (b) the headline scenario (host link x0.5 at round 4) at yi-9b's KV
+    geometry, react and baseline, reports equal to the CPU's, with each
+    arm's wall on the card; (c) the evacuation a hot removal triggers,
+    measured at the pager phase's geometry over 48 layers: ``retier((1,
+    0))`` of spilled bf16 and int8 caches (the fetch through pinned
+    staging, K5 on the int8 pages), then ``retier((2, 1))`` and
+    ``spill_cold_pages()`` (K4 on the int8 pages), its host rows held
+    against the plain result."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.fabric.systems import get_system
+    from repro_torch.heimdall import resilience
+    from repro_torch.kernels.quant import (dequantize_pages_ref,
+                                           quantize_pages_ref)
+    from repro_torch.runtime.degrade import (DegradedServeConfig,
+                                             host_link_degraded,
+                                             run_degraded_serve)
+    from repro_torch.serving.pager import PagedKVCache, PagerConfig
+    from repro_torch.transport import PageTransfer, Route, plan_transfers
+
+    def simulated_migration_s(name: str, nbytes: int) -> float:
+        """What the recovery controller charges for moving ``nbytes`` from
+        the spill tier to the compute tier on preset ``name``: one bulk
+        transfer planned over that route."""
+        system = get_system(name)
+        route = Route.try_resolve(system, system.kv_tiers[1],
+                                  system.compute)
+        return plan_transfers(route, (PageTransfer("retier", nbytes),),
+                              flow_prefix="migrate_").total_time
+
+    out = {"phase": "degrade", "simulated_reports": True}
+    # (a) the family at its own config
+    t0 = time.perf_counter()
+    fam = resilience.resilience_summary(device="cuda")
+    fam_s = time.perf_counter() - t0
+    fam_cpu = resilience.resilience_summary(device="cpu")
+    overhead = fam.pop("detector_overhead_us")
+    fam_cpu.pop("detector_overhead_us")
+    _same_reports("resilience_summary", fam, fam_cpu)
+    th = fam["thresholds"]
+    out["family"] = {"summary": fam, "card_s": fam_s,
+                     "detector_overhead_us": overhead}
+    if not (fam["recovery"]["frac"] >= th["min_recovery_frac"]
+            and fam["detect"]["latency_rounds"] <= th["max_detect_rounds"]
+            and fam["slo"]["violations_react"]
+            < fam["slo"]["violations_baseline"]):
+        raise AssertionError(f"resilience thresholds missed: {fam}")
+
+    # (b) the headline at yi-9b's KV geometry
+    cfg = DegradedServeConfig(kv_heads=PAGER["hkv"], head_dim=PAGER["d"],
+                              page_size=PAGER["page"],
+                              requests=PAGER["seqs"],
+                              prompt=PAGER["prompt"], gen=PAGER["gen"],
+                              rounds=12)
+    sched = host_link_degraded(system=cfg.system, at_round=4, factor=0.5)
+    head = {}
+    for arm, react in (("react", True), ("baseline", False)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = run_degraded_serve(sched, cfg=cfg, react=react,
+                                  device="cuda").to_json()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cpu = run_degraded_serve(sched, cfg=cfg, react=react,
+                                 device="cpu").to_json()
+        _same_reports(f"degraded serve ({arm})", card, cpu)
+        head[arm] = {"wall_s": wall,
+                     "wall_ms_per_round": 1e3 * wall / cfg.rounds,
+                     "detect_round": card["detect_round"],
+                     "recovery_frac": card["recovery_frac"],
+                     "violations_total": card["violations_total"],
+                     "pre_tput_tok_s": card["pre_tput_tok_s"],
+                     "post_tput_tok_s": card["post_tput_tok_s"],
+                     "action": next((r["action"] for r in card["rounds"]
+                                     if r["action"]), None)}
+    out["headline_yi9b_kv"] = {"config": dataclasses.asdict(cfg),
+                               "arms": head}
+    react = head["react"]
+    if not (react["violations_total"]
+            < head["baseline"]["violations_total"]
+            and react["recovery_frac"] >= th["min_recovery_frac"]
+            and react["detect_round"] is not None
+            and react["detect_round"] - 4 <= th["max_detect_rounds"]):
+        raise AssertionError(f"headline at yi-9b's KV geometry: {head}")
+
+    # (c) the evacuation, measured
+    g, ps = PAGER, pager_shape()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    pinned_before = _pinned_storages()
+    layers = []
+    for _ in range(g["layers"]):
+        caches = {mode: PagedKVCache(PagerConfig(
+            page_size=g["page"], n_pages=ps["n_pages"], kv_heads=g["hkv"],
+            head_dim=g["d"], weights=g["weights"], dtype="bfloat16",
+            kv_dtype=kv_dtype), device="cuda")
+            for mode, kv_dtype in (("fp", None), ("int8", "int8"))}
+        for sq in range(g["seqs"]):
+            kv = torch.randn(2, g["prompt"], g["hkv"], g["d"],
+                             generator=gen, device="cuda",
+                             dtype=torch.bfloat16)
+            for c in caches.values():
+                c.allocate(sq)
+                c.append(sq, kv[0], kv[1])
+        layers.append(caches)
+    host = torch.from_numpy(np.nonzero(
+        layers[0]["fp"].tier_of_page == 1)[0]).cuda()
+    keep = torch.ones(ps["n_pages"], dtype=torch.bool, device="cuda")
+    keep[host] = False
+    pre = []
+    for caches in layers:
+        pre.append({m: (c.k_pool.clone(), c.v_pool.clone())
+                    for m, c in caches.items()})
+        for c in caches.values():
+            c.spill_cold_pages()
+            # the pages now live only on the host tier, as on a removed
+            # expander: the fetch must bring every value back
+            c.k_pool[host] = 0
+            c.v_pool[host] = 0
+    torch.cuda.synchronize()
+    evac = {}
+    bad = []
+    for mode in ("fp", "int8"):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        infos = [caches[mode].retier((1, 0)) for caches in layers]
+        torch.cuda.synchronize()
+        ev_s = time.perf_counter() - t0
+        ev_launch = dict(kernels.LAUNCHES)
+        ev_bytes = sum(i["to_fast"] for i in infos) \
+            * layers[0][mode].host_page_bytes
+        for li, caches in enumerate(layers):
+            c = caches[mode]
+            for b, a in zip(pre[li][mode], (c.k_pool, c.v_pool)):
+                if mode == "fp":
+                    ok = torch.equal(a, b)
+                else:
+                    want = dequantize_pages_ref(
+                        *quantize_pages_ref(b[host]), b.dtype)
+                    ok = torch.equal(a[host], want) and bool(
+                        (a[host] != 0).any()) and torch.equal(a[keep],
+                                                              b[keep])
+                if not ok:
+                    bad.append((li, f"{mode} evacuation"))
+            if c.host_pages(list(range(g["seqs"]))):
+                bad.append((li, f"{mode} pages left on the host tier"))
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moved = 0
+        for caches in layers:
+            c = caches[mode]
+            c.retier(g["weights"])
+            moved += c.spill_cold_pages()
+        torch.cuda.synchronize()
+        rs_s = time.perf_counter() - t0
+        rs_launch = dict(kernels.LAUNCHES)
+        rs_bytes = moved * layers[0][mode].host_page_bytes
+        # the re-spill's host rows against the plain result: bf16 rows are
+        # the pools' new host rows, int8 rows and scales their plain
+        # quantization
+        for li, caches in enumerate(layers):
+            c = caches[mode]
+            rows = torch.from_numpy(np.nonzero(c.tier_of_page == 1)[0])
+            for pool, side in ((c.k_pool, "k"), (c.v_pool, "v")):
+                cold = pool[rows.cuda()]
+                got = getattr(c, f"{side}_pool_host")[rows]
+                if mode == "fp":
+                    ok = torch.equal(got, cold.cpu())
+                else:
+                    wq, ws = quantize_pages_ref(cold)
+                    ok = torch.equal(got, wq.cpu()) and torch.equal(
+                        getattr(c, f"{side}_scales_host")[rows], ws.cpu())
+                if not (ok and rows.numel()):
+                    bad.append((li, f"{mode} re-spill host rows ({side})"))
+        evac[mode] = {
+            "pages_evacuated": sum(i["to_fast"] for i in infos),
+            "evacuation_bytes": ev_bytes, "evacuation_s": ev_s,
+            "evacuation_gb_per_s": ev_bytes / ev_s / 1e9,
+            "respill_pages": moved, "respill_bytes": rs_bytes,
+            "respill_s": rs_s, "respill_gb_per_s": rs_bytes / rs_s / 1e9,
+            "launches_evacuation": ev_launch, "launches_respill": rs_launch,
+            "simulated_migration_s": {
+                name: simulated_migration_s(name, ev_bytes)
+                for name in ("tpu_v5e", "gh200")}}
+        L = g["layers"]
+        want_ev = 2 * L if mode == "int8" else 0
+        if ev_launch["dequantize_pages"] != want_ev \
+                or ev_launch["quantize_pages"] != 0:
+            bad.append(("launches", f"{mode} evacuation {ev_launch}"))
+        if rs_launch["quantize_pages"] != want_ev \
+                or rs_launch["dequantize_pages"] != 0:
+            bad.append(("launches", f"{mode} re-spill {rs_launch}"))
+    held = set()
+    for caches in layers:
+        for c in caches.values():
+            for name in ("k_pool_host", "v_pool_host", "k_scales_host",
+                         "v_scales_host"):
+                t = getattr(c, name, None)
+                if t is not None:
+                    if not t.is_pinned():
+                        bad.append(("pinned", name))
+                    held.add(t.untyped_storage().data_ptr())
+    stray = (_pinned_storages() - pinned_before) - held
+    out["evacuation"] = {"layers": g["layers"], "n_pages": ps["n_pages"],
+                         "host_pages_per_pool": int(host.numel()),
+                         "modes": evac,
+                         "pinned_tensors_held": len(held),
+                         "pinned_stray": len(stray)}
+    if stray:
+        bad.append(("pinned", f"{len(stray)} pinned tensors the caches do "
+                              "not hold"))
+    emit(out)
+    if bad:
+        raise AssertionError(f"degrade checks failed: {bad}")
+    return out
+
+
+def phase_disagg() -> dict:
+    """Disaggregated prefill/decode with the decode node's pager on the
+    card: the disagg family's summary (overlap speedup at least
+    ``MIN_OVERLAP_SPEEDUP``), ``run_disagg_serve`` at yi-9b's KV geometry
+    on ``cxl_pool``, fp and int8, traced, and the qos and interference
+    families' rows, each equal to the CPU's. Every time here is
+    simulated."""
+    from repro_torch.heimdall import disagg, interference, qos
+    from repro_torch.obs import Tracer
+    from repro_torch.serving.disagg import DisaggConfig, run_disagg_serve
+
+    out = {"phase": "disagg", "simulated": True}
+    fam = disagg.disagg_summary(device="cuda")
+    _same_reports("disagg_summary", fam, disagg.disagg_summary(device="cpu"))
+    out["family"] = fam
+    if not (fam["overlap_speedup"] >= disagg.MIN_OVERLAP_SPEEDUP
+            and fam["deadline_violations"] == 0):
+        raise AssertionError(f"disagg thresholds missed: {fam}")
+    runs = {}
+    for mode, kv_dtype in (("fp", None), ("int8", "int8")):
+        cfg = DisaggConfig(system="cxl_pool", kv_heads=PAGER["hkv"],
+                           head_dim=PAGER["d"], requests=PAGER["seqs"],
+                           prompt=PAGER["prompt"], kv_dtype=kv_dtype)
+        reps = {dev: run_disagg_serve(cfg, tracer=Tracer(clock=lambda: 0.0),
+                                      device=dev).to_json()
+                for dev in ("cuda", "cpu")}
+        _same_reports(f"run_disagg_serve ({mode})", reps["cuda"],
+                      reps["cpu"])
+        r = reps["cuda"]
+        runs[mode] = {k: r[k] for k in (
+            "route", "shipped_wire_bytes", "overlap_speedup",
+            "mean_completion_s", "makespan_s", "sync_makespan_s")}
+        runs[mode]["violations"] = len(r["deadline_violations"])
+    runs["wire_bytes_ratio"] = (runs["fp"]["shipped_wire_bytes"]
+                                / runs["int8"]["shipped_wire_bytes"])
+    out["yi9b_kv_cxl_pool"] = runs
+    q_card = [r.csv() for r in qos.qos_decode_admission(device="cuda")]
+    q_cpu = [r.csv() for r in qos.qos_decode_admission(device="cpu")]
+    _same_reports("qos_decode_admission", q_card, q_cpu)
+    out["qos"] = {"summary": qos.qos_summary(), "decode_admission": q_card}
+    rows = [r.csv() for fn in interference.ALL_INTERFERENCE for r in fn()]
+    out["interference"] = rows
+    emit(out)
+    if not out["qos"]["summary"]["eta_improvement"] >= 1.3:
+        raise AssertionError(f"qos threshold missed: {out['qos']}")
+    return out
+
+
 PAGED_SOURCES = {
     "paged_attention": ("src/repro_torch/kernels/paged_attention/csrc/"
                         "paged_attention.cu",
@@ -1884,6 +2217,8 @@ def phase_all() -> None:
     serve = phase_serve()
     offload = phase_serve_offload(serve.pop("tokens"))
     pager = phase_pager()
+    phase_degrade()
+    phase_disagg()
     phase_paged_sim()
     phase_kv_quant()
     emit(kernels_line(kern, serve, offload, paged, pager, flat, compressed))
@@ -1907,7 +2242,8 @@ def expandable_segments():
 
 
 ONLY = {"serve": phase_serve, "serve_offload": phase_serve_offload,
-        "pager": phase_pager, "paged_kernels": phase_paged_kernels}
+        "pager": phase_pager, "paged_kernels": phase_paged_kernels,
+        "degrade": phase_degrade, "disagg": phase_disagg}
 
 
 def main(argv=None) -> int:

@@ -32,8 +32,19 @@ two pagers' pools live on the device, the schedule is a simulation on the
 
   python -m repro_torch.launch.serve --paged-sim --system gh200
 
-The ``--disagg-sim`` / ``--degrade-sim`` modes and calibration profiles
-come with later slices.
+``--disagg-sim`` simulates disaggregated prefill/decode (KV pages shipped
+between compute nodes, ``--kv-dtype int8`` for the compressed ship) and
+``--degrade-sim`` the degradation loop (the host link cut to
+``--degrade-factor`` at ``--degrade-round``; the reacting run beside the
+no-reaction baseline). Their pagers live on ``--device``; their times are
+simulated on the ``--system`` preset:
+
+  python -m repro_torch.launch.serve --disagg-sim --kv-dtype int8 \
+      --device cpu
+  python -m repro_torch.launch.serve --degrade-sim --device cpu
+
+Calibration profiles (``--calibration-profile``, ``--recalibrate``) come
+with the calibration slice.
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ import dataclasses
 import json
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -249,6 +261,12 @@ class DecodeSchedule:
     sync_makespan: float         # baseline: stall until ALL pages landed
     prefetch_total: float        # PrefetchPlan.total_time
     step_time: float
+    violations: dict = dataclasses.field(default_factory=dict)
+    # seq id -> overrun (s) past its deadline; only sequences given a
+    # deadline via ``schedule(..., deadlines=)`` can appear here
+    plan: object = None
+    # the prefetch/transfer plan the schedule admitted against — the
+    # drift sentinel replays it against calibration predictions
 
     @property
     def mean_completion(self) -> float:
@@ -303,19 +321,40 @@ class DecodeScheduler:
             out[s] = max((plan.eta[p] for p in pages), default=0.0)
         return out
 
-    def schedule(self, seq_ids: list, n_steps: int) -> DecodeSchedule:
+    def schedule(self, seq_ids: list, n_steps: int,
+                 deadlines: Optional[dict] = None) -> DecodeSchedule:
         """Simulate ``n_steps`` decode steps per sequence, admitting each
-        sequence at its pages' arrival (deadline-aware continuous batch)."""
+        sequence at its pages' arrival (deadline-aware continuous batch).
+
+        ``deadlines`` optionally maps seq id -> SLO completion deadline
+        (s, sim time). A sequence finishing after its deadline lands in
+        ``DecodeSchedule.violations`` with its overrun — the interactive-
+        class protection signal the degradation loop (and its no-reaction
+        baseline) are judged on.
+        """
         plan = self.cache.plan_prefetch(seq_ids, system=self.system,
                                         background=self.background,
                                         priority=self.priority)
         ready = self.ready_times(seq_ids, plan)
+        seq_flows = None
+        if self.tracer.enabled:
+            # flow ids the pager's plan_transfers assigned ("page{p}") —
+            # the per-request attribution joins these against the fabric
+            # sim's flow lifecycle events
+            seq_flows = {s: [f"page{p}" for p in self.cache.tables[s]
+                             if self.cache.tier_of_page[p] == 1]
+                         for s in seq_ids}
         return admission_schedule(ready, plan, n_steps, self.step_time,
-                                  tracer=self.tracer)
+                                  deadlines=deadlines,
+                                  seq_flows=seq_flows, tracer=self.tracer)
 
 
 def admission_schedule(ready: dict, plan, n_steps: int, step_time: float,
-                       *, tracer=NULL_TRACER) -> DecodeSchedule:
+                       *, deadlines: Optional[dict] = None,
+                       seq_flows: Optional[dict] = None,
+                       starts: Optional[dict] = None,
+                       prefill_done: Optional[dict] = None,
+                       tracer=NULL_TRACER) -> DecodeSchedule:
     """The deadline-aware admission loop itself, plan-agnostic.
 
     ``ready`` maps seq id -> sim time its pages are fully resident (dict
@@ -324,8 +363,26 @@ def admission_schedule(ready: dict, plan, n_steps: int, step_time: float,
     transport ``TransferPlan`` (the disaggregated prefill->decode shipment
     reuses this loop unchanged: pages landing over the cross-host route
     admit sequences exactly like host->HBM prefetches do).
+
+    ``seq_flows`` (seq id -> list of fabric flow ids carrying its bytes)
+    turns on per-request attribution: one ``attrib.request`` instant per
+    sequence ties the request to its flows, its pages-ready time, its
+    start (``starts``, default 0.0 — sim-time origin) and optionally its
+    prefill completion (``prefill_done``), which is everything
+    ``repro_torch.obs.attribution`` needs to rebuild the critical path.
     """
     seq_ids = list(ready)
+    if tracer.enabled and seq_flows is not None:
+        for s in seq_ids:
+            t0 = (starts or {}).get(s, 0.0)
+            extra = {}
+            pd = (prefill_done or {}).get(s)
+            if pd is not None:
+                extra["prefill_done"] = pd
+            tracer.instant("attrib.request", ts=t0,
+                           track=("scheduler", "attribution"),
+                           cat="attrib", rid=s, start=t0, ready=ready[s],
+                           flows=list(seq_flows.get(s, ())), **extra)
     remaining = {s: n_steps for s in seq_ids}
     admit: dict = {}
     finish: dict = {}
@@ -376,8 +433,15 @@ def admission_schedule(ready: dict, plan, n_steps: int, step_time: float,
         t += step_time
     makespan = max(finish.values()) if finish else 0.0
     sync = plan.total_time + n_steps * step_time
+    violations = {}
+    if deadlines:
+        for s, dl in deadlines.items():
+            done = finish.get(s)
+            if done is not None and done > dl:
+                violations[s] = done - dl
     sched = DecodeSchedule(tuple(steps), admit, finish, makespan, sync,
-                           plan.total_time, step_time)
+                           plan.total_time, step_time, violations,
+                           plan=plan)
     if traced:
         m = tracer.metrics
         m.add("sched.steps", len(steps))
@@ -385,6 +449,13 @@ def admission_schedule(ready: dict, plan, n_steps: int, step_time: float,
         m.set("sched.makespan_s", makespan)
         m.set("sched.mean_completion_s", sched.mean_completion)
         m.set("sched.prefetch_total_s", plan.total_time)
+        if deadlines:
+            m.add("sched.deadline_violations", len(violations))
+            for s, over in violations.items():
+                tracer.instant("sched.deadline_miss",
+                               ts=finish[s],
+                               track=("scheduler", "admissions"),
+                               cat="sched", seq=s, overrun_s=over)
     return sched
 
 
@@ -516,10 +587,26 @@ def main(argv=None):
     ap.add_argument("--paged-sim", action="store_true",
                     help="simulated fp16-vs-int8 paged decode scheduling "
                          "report (no model run)")
+    ap.add_argument("--disagg-sim", action="store_true",
+                    help="simulated disaggregated prefill/decode serve: "
+                         "roles on separate compute nodes, KV pages "
+                         "shipped over the contended fabric route the "
+                         "cost model picks (no model run)")
+    ap.add_argument("--kv-dtype", default=None, choices=["int8"],
+                    help="ship pages in the pager's quantized cold-tier "
+                         "layout (--disagg-sim)")
+    ap.add_argument("--degrade-sim", action="store_true",
+                    help="inject the headline degradation (host link "
+                         "halved mid-serve) and report the reacting run "
+                         "vs the no-reaction baseline (no model run)")
+    ap.add_argument("--degrade-factor", type=float, default=0.5,
+                    help="surviving bandwidth fraction for --degrade-sim")
+    ap.add_argument("--degrade-round", type=int, default=4,
+                    help="serve round the fault fires at (--degrade-sim)")
     ap.add_argument("--system", default="tpu_v5e",
-                    help="fabric preset the --paged-sim schedule runs on")
+                    help="fabric preset the simulated modes run on")
     ap.add_argument("--step-us", type=float, default=100.0,
-                    help="decode step time of the --paged-sim schedule")
+                    help="decode step time of the simulated modes")
     ap.add_argument("--trace-out", default=None, metavar="TRACE.json",
                     help="write a Chrome trace-event file (open in "
                          "https://ui.perfetto.dev) covering the run: "
@@ -530,7 +617,10 @@ def main(argv=None):
                          "(MetricsRegistry.to_json) here")
     ap.add_argument("--recorder-out", default=None, metavar="FLIGHT.json",
                     help="attach a FlightRecorder (bounded ring buffer) "
-                         "and write its snapshot here")
+                         "and write its snapshot here — for --degrade-sim "
+                         "the dump is triggered by the first SLO burn "
+                         "alert / detector fire and carries the failing "
+                         "window's attribution summary")
     ap.add_argument("--recorder-capacity", type=int, default=8192,
                     help="flight-recorder ring size in events")
     ap.add_argument("--openmetrics-out", default=None,
@@ -571,6 +661,40 @@ def main(argv=None):
             indent=2))
         _flush_obs(args, tracer, recorder, full)
         return
+
+    if args.disagg_sim:
+        from repro_torch.serving.disagg import DisaggConfig, run_disagg_serve
+        report = run_disagg_serve(
+            DisaggConfig(system=args.system, requests=args.requests,
+                         prompt=args.prompt, gen=args.gen,
+                         step_us=args.step_us, kv_dtype=args.kv_dtype),
+            tracer=tracer, device=args.device)
+        print(json.dumps(report.to_json(), indent=2))
+        _flush_obs(args, tracer, recorder, full)
+        return
+
+    if args.degrade_sim:
+        from repro_torch.runtime.degrade import (DegradedServeConfig,
+                                                 host_link_degraded,
+                                                 run_degraded_serve)
+        cfg = DegradedServeConfig(system=args.system,
+                                  step_us=args.step_us)
+        sched = host_link_degraded(system=args.system,
+                                   at_round=args.degrade_round,
+                                   factor=args.degrade_factor)
+        react = run_degraded_serve(
+            sched, cfg=cfg, react=True,
+            tracer=tracer.scoped("react") if tracer.enabled else tracer,
+            recorder=recorder, device=args.device)
+        base = run_degraded_serve(
+            sched, cfg=cfg, react=False,
+            tracer=tracer.scoped("baseline") if tracer.enabled else tracer,
+            device=args.device)
+        print(json.dumps({"react": react.to_json(),
+                          "baseline": base.to_json()}, indent=2))
+        _flush_obs(args, tracer, recorder, full)
+        return
+
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()

@@ -1,1 +1,1 @@
-"""Serving: the tiered paged KV cache."""
+"""Serving: the tiered paged KV cache and disaggregated prefill/decode."""

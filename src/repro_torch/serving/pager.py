@@ -461,11 +461,13 @@ class PagedKVCache:
 @dataclasses.dataclass(frozen=True)
 class PrefetchPlan:
     """Fabric-simulated prefetch schedule for a set of host-tier pages: a
-    thin page-id-keyed view over ``repro_torch.transport.TransferPlan``."""
+    thin page-id-keyed view over ``repro_torch.transport.TransferPlan``,
+    which rides along as ``transfer_plan`` when one was built."""
     order: tuple                 # page ids in fetch order
     eta: dict                    # page id -> estimated arrival time (s)
     total_time: float            # when the last page lands (s)
     effective_bw: float          # contended link bandwidth used (bytes/s)
+    transfer_plan: Optional[object] = None   # transport.TransferPlan
 
     def ready_by(self, deadline: float) -> list[int]:
         """Pages resident if the decode step fires at `deadline`."""
@@ -518,4 +520,4 @@ def plan_prefetch(pages: list, page_bytes: int, system=None,
         tracer.metrics.add("pager.prefetch.bytes", plan.wire_bytes,
                            tier="host")
     return PrefetchPlan(tuple(pages), dict(plan.eta), plan.total_time,
-                        plan.effective_bw)
+                        plan.effective_bw, plan)

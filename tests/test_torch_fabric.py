@@ -123,10 +123,12 @@ def _filled(kv_dtype, pkg):
 
 def _schedule_fields(ds, names):
     """The ``names`` fields of a DecodeSchedule (the port's fields, which
-    the reference's schedule also has), with its steps and derived
-    figures."""
-    d = {n: getattr(ds, n) for n in names if n != "steps"}
+    the reference's schedule also has), with its steps, the prefetch plan
+    it admitted against and derived figures."""
+    d = {n: getattr(ds, n) for n in names if n not in ("steps", "plan")}
     d["steps"] = [dataclasses.astuple(s) for s in ds.steps]
+    d["plan"] = (ds.plan.order, ds.plan.eta, ds.plan.total_time,
+                 ds.plan.effective_bw)
     d["mean_completion"] = ds.mean_completion
     d["speedup"] = ds.speedup
     return d

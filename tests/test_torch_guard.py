@@ -63,6 +63,24 @@ def test_pager_entry_points_refuse_a_machine_without_cuda(monkeypatch):
             call()
 
 
+def test_pager_consumers_refuse_a_machine_without_cuda(monkeypatch):
+    from repro_torch.heimdall import disagg, qos, resilience
+    from repro_torch.launch.serve import main
+    from repro_torch.runtime import host_link_degraded, run_degraded_serve
+    from repro_torch.serving.disagg import DisaggConfig, run_disagg_serve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: run_degraded_serve(host_link_degraded()),
+                 lambda: run_disagg_serve(DisaggConfig(requests=1)),
+                 lambda: qos.qos_decode_admission(),
+                 lambda: disagg.disagg_summary(),
+                 lambda: resilience.resilience_summary(),
+                 lambda: main(["--degrade-sim"]),
+                 lambda: main(["--disagg-sim", "--requests", "1"])):
+        with pytest.raises(RuntimeError,
+                           match="no CUDA device is available"):
+            call()
+
+
 def test_train_refuses_a_machine_without_cuda(monkeypatch, tmp_path):
     from repro_torch.config.base import RunConfig, ShapeConfig, get_config
     from repro_torch.data.synthetic import PrefetchLoader

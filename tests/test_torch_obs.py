@@ -5,9 +5,10 @@ copies must equal it exactly: each test feeds one input (a seeded latency
 stream, a fabric-simulator run, a recorded scheduler stream) through both
 packages and compares the results as JSON text, so the tolerance is
 equality. The fabric streams are produced by each package's own simulator
-(they must match event for event); the attribution streams come from the
-reference's disaggregated serve run, whose scheduler options the port has
-not ported yet, and are replayed as the port's ``TraceEvent``s.
+(they must match event for event); the attribution streams come from a
+disaggregated serve run, recorded once with the reference's and once with
+the port's (``device="cpu"``), and each is replayed through both
+packages' ``TraceEvent``s.
 """
 
 import importlib
@@ -508,16 +509,20 @@ _RECORDED: dict = {}
 
 
 def _recorded(name):
-    """A stream recorded once with the reference's disaggregated serve
-    (its scheduler emits the ``attrib.request`` instants)."""
+    """A stream recorded once with a disaggregated serve (its scheduler
+    emits the ``attrib.request`` instants): the reference's, or with a
+    ``port_`` prefix the port's."""
     if name not in _RECORDED:
-        from repro.obs import Tracer
-        from repro.serving.disagg import DisaggConfig, run_disagg_serve
+        side, base = ("repro_torch", name[5:]) if name.startswith("port_") \
+            else ("repro", name)
+        disagg = mod(side, "serving.disagg")
         kw = {"disagg3": dict(requests=3),
               "disagg5_int8": dict(requests=5, kv_dtype="int8"),
-              "disagg4_tpu": dict(requests=4, system="tpu_v5e")}[name]
-        tr = Tracer(clock=lambda: 0.0)
-        run_disagg_serve(DisaggConfig(**kw), tracer=tr)
+              "disagg4_tpu": dict(requests=4, system="tpu_v5e")}[base]
+        tr = mod(side, "obs").Tracer(clock=lambda: 0.0)
+        disagg.run_disagg_serve(disagg.DisaggConfig(**kw), tracer=tr,
+                                **({"device": "cpu"} if side == "repro_torch"
+                                   else {}))
         _RECORDED[name] = [tuple(e) for e in tr.events]
     return _RECORDED[name]
 
@@ -530,7 +535,8 @@ def _stream_for(side, name):
 
 
 @pytest.mark.parametrize("name", ["hand", "disagg3", "disagg5_int8",
-                                  "disagg4_tpu"])
+                                  "disagg4_tpu", "port_disagg3",
+                                  "port_disagg5_int8", "port_disagg4_tpu"])
 def test_attribution_matches_reference(name):
     def go(side):
         o = mod(side, "obs")
@@ -547,6 +553,13 @@ def test_attribution_matches_reference(name):
                 "absent": o.attribution_summary(attrs, rids=["absent"])}
     got = same(go)
     assert got["summary"]["requests"] >= 1
+
+
+@pytest.mark.parametrize("name", ["disagg3", "disagg5_int8", "disagg4_tpu"])
+def test_port_recorded_serve_stream_equals_reference_recorded(name):
+    """The port's disaggregated serve emits the reference's event stream,
+    event for event."""
+    assert text(_recorded(f"port_{name}")) == text(_recorded(name))
 
 
 def test_ledger_on_recorded_serve_stream_matches_reference():

@@ -262,3 +262,30 @@ def test_retier_keeps_live_values(seed, n1, n2, do_append, new_weights):
     np.testing.assert_array_equal(c._host_idx,
                                   np.nonzero(c.tier_of_page == 1)[0])
     assert out["weights"] == tuple(new_weights)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+@pytest.mark.parametrize("priority", [None, 0, 2])
+def test_plan_prefetch_priority_and_transfer_plan_match_reference(
+        kv_dtype, priority):
+    """``plan_prefetch(priority=)`` under a bulk stream: the same ETAs,
+    the same events on the cache's tracer, and the transport plan riding
+    along as ``transfer_plan`` (the drift sentinel replays it)."""
+    from repro.fabric.contention import Flow as RefFlow
+    from repro.obs import Tracer as RefTracer
+    from repro_torch.fabric.contention import Flow
+    (ref, port), _ = _filled(lens=(40, 33, 17), kv_dtype=kv_dtype)
+    out = {}
+    for side, cache, F, T in (("ref", ref, RefFlow, RefTracer),
+                              ("port", port, Flow, Tracer)):
+        tr = cache.tracer = T(clock=lambda: 0.0)
+        bg = (F("offload", "host", "hbm", nbytes=4 * MiB),)
+        plan = cache.plan_prefetch([0, 1, 2], background=bg,
+                                   priority=priority)
+        tp = plan.transfer_plan
+        out[side] = (plan.order, plan.eta, plan.total_time,
+                     plan.effective_bw, tp.wire_bytes, tp.logical_bytes,
+                     tp.route.label, [tuple(e) for e in tr.events],
+                     tr.metrics.to_json())
+    assert out["port"] == out["ref"]
+    assert out["port"][7]

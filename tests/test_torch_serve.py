@@ -275,3 +275,140 @@ def test_failed_pin_raises_instead_of_keeping_weights_elsewhere(monkeypatch):
     with pytest.raises(RuntimeError, match="cannot pin host memory"):
         offload.put_tree({"w": torch.ones(4, 4, dtype=torch.bfloat16)},
                          "pinned_host", "cuda")
+
+
+# ---------------------------------------------------------------------------
+# The scheduler options the pager's consumers read: deadlines, violations,
+# the admitted plan, per-call QoS weight, attribution instants
+# ---------------------------------------------------------------------------
+
+
+def _sched_cache(pkg, kv_dtype=None):
+    """qos_decode_admission's pager (bf16, 2:1), in either package."""
+    if pkg == "ref":
+        import jax.numpy as jnp
+        from repro.serving.pager import PagedKVCache, PagerConfig
+        kv, kw = jnp.zeros((544, 8, 128), jnp.bfloat16), {}
+    else:
+        from repro_torch.serving.pager import PagedKVCache, PagerConfig
+        kv, kw = torch.zeros(544, 8, 128, dtype=torch.bfloat16), \
+            {"device": "cpu"}
+    c = PagedKVCache(PagerConfig(page_size=64, n_pages=64, kv_heads=8,
+                                 head_dim=128, weights=(2, 1),
+                                 kv_dtype=kv_dtype), **kw)
+    for s in range(4):
+        c.allocate(s)
+        c.append(s, kv, kv)
+    return c
+
+
+def _schedule_json(ds) -> str:
+    p = ds.plan
+    return json.dumps({
+        "steps": [list(s.__dict__.values()) for s in ds.steps],
+        "admit": ds.admit_time, "finish": ds.finish_time,
+        "makespan": ds.makespan, "sync": ds.sync_makespan,
+        "prefetch": ds.prefetch_total, "violations": ds.violations,
+        "plan": [p.order, p.eta, p.total_time, p.effective_bw,
+                 p.transfer_plan.wire_bytes, p.transfer_plan.route.label]},
+        sort_keys=True)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+@pytest.mark.parametrize("kw", [{}, {"priority": 0}, {"priority": 1},
+                                {"priority": 2}])
+def test_decode_scheduler_deadlines_match_reference(kv_dtype, kw):
+    from repro.fabric.contention import Flow as RefFlow
+    from repro.launch.serve import DecodeScheduler as RefScheduler
+    from repro_torch.fabric.contention import Flow
+    out = {}
+    for pkg, Sched, F, T in (("ref", RefScheduler, RefFlow, JaxTracer),
+                             ("port", serve.DecodeScheduler, Flow, Tracer)):
+        tr = T(clock=lambda: 0.0)
+        bg = (F("bulk", "host", "hbm", nbytes=256 << 20),)
+        sched = Sched(_sched_cache(pkg, kv_dtype), background=bg,
+                      step_time=100e-6, tracer=tr, **kw)
+        first = sched.schedule([0, 1, 2, 3], 16)
+        # deadlines between the first and the last completion: some miss
+        mid = sorted(first.finish_time.values())[1]
+        ds = sched.schedule([0, 1, 2, 3], 16,
+                            deadlines={s: mid for s in range(4)})
+        out[pkg] = (_schedule_json(first), _schedule_json(ds),
+                    [tuple(e) for e in tr.events],
+                    json.dumps(tr.metrics.to_json(), sort_keys=True))
+    assert out["port"] == out["ref"]
+    ds = json.loads(out["port"][1])
+    assert ds["violations"] and len(ds["violations"]) < 4
+    names = {e[1] for e in out["port"][2]}
+    assert {"attrib.request", "sched.deadline_miss"} <= names
+
+
+@pytest.mark.parametrize("deadlines", [None, {0: 1e-5, 1: 1.0, 3: 2e-5}])
+def test_admission_schedule_attribution_matches_reference(deadlines):
+    """admission_schedule with seq_flows, starts and prefill_done (the
+    disaggregated serve's arguments): the same schedule, the same
+    ``attrib.request`` instants and metrics."""
+    from repro.launch.serve import admission_schedule as ref_admit
+    from repro.serving.pager import plan_prefetch as ref_plan
+    from repro_torch.serving.pager import plan_prefetch
+    ready = {0: 0.0, 1: 9e-6, 2: 2e-5, 3: 4e-5}
+    args = dict(deadlines=deadlines,
+                seq_flows={s: [f"page{p}" for p in (s, s + 4)]
+                           for s in ready},
+                starts={s: s * 1e-6 for s in ready},
+                prefill_done={0: 2e-6, 2: 5e-6})
+    out = {}
+    for pkg, admit, plan, T in (("ref", ref_admit, ref_plan, JaxTracer),
+                                ("port", serve.admission_schedule,
+                                 plan_prefetch, Tracer)):
+        tr = T(clock=lambda: 0.0)
+        ds = admit(ready, plan(list(range(8)), 1 << 20), 3, 1e-5,
+                   tracer=tr, **args)
+        out[pkg] = (_schedule_json(ds), [tuple(e) for e in tr.events],
+                    json.dumps(tr.metrics.to_json(), sort_keys=True))
+    assert out["port"] == out["ref"]
+    instants = [e for e in out["port"][1] if e[1] == "attrib.request"]
+    assert len(instants) == 4 and "prefill_done" in instants[0][6]
+
+
+@pytest.mark.parametrize("prefetch_priority", [0, 1])
+def test_simulate_paged_decode_prefetch_priority_matches_reference(
+        prefetch_priority):
+    from repro.launch.serve import simulate_paged_decode as ref_sim
+    got = serve.simulate_paged_decode(requests=3, gen=6,
+                                      prefetch_priority=prefetch_priority,
+                                      device="cpu")
+    want = ref_sim(requests=3, gen=6, prefetch_priority=prefetch_priority)
+    assert got == want
+
+
+def test_cli_degrade_sim_matches_direct_runs(capsys):
+    """``--degrade-sim`` prints the port's own reacting and baseline runs
+    (the reference CLI cannot run its reacting arm under the installed
+    jax: its pager's fetch raises)."""
+    from repro_torch.runtime.degrade import (DegradedServeConfig,
+                                             host_link_degraded,
+                                             run_degraded_serve)
+    serve.main(["--degrade-sim", "--degrade-factor", "0.4",
+                "--degrade-round", "3", "--step-us", "80",
+                "--device", "cpu"])
+    got = json.loads(capsys.readouterr().out)
+    cfg = DegradedServeConfig(step_us=80.0)
+    sched = host_link_degraded(at_round=3, factor=0.4)
+    want = {"react": run_degraded_serve(sched, cfg=cfg, react=True,
+                                        device="cpu").to_json(),
+            "baseline": run_degraded_serve(sched, cfg=cfg, react=False,
+                                           device="cpu").to_json()}
+    assert json.dumps(got, sort_keys=True) == \
+        json.dumps(json.loads(json.dumps(want)), sort_keys=True)
+    assert got["react"]["recovery_frac"] > got["baseline"]["recovery_frac"]
+
+
+def test_cli_degrade_sim_writes_the_recorder_dump(tmp_path, capsys):
+    out = tmp_path / "flight.json"
+    serve.main(["--degrade-sim", "--device", "cpu", "--recorder-out",
+                str(out), "--recorder-capacity", "256"])
+    capsys.readouterr()
+    trace = json.loads(out.read_text())
+    assert trace["metadata"]["reason"].startswith(
+        ("detector_fire", "slo_violation"))
