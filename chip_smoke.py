@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only paged_kernels  # K2-K5 alone, after the build
     python3 chip_smoke.py --only serve,serve_offload  # HBM, then offloaded
     python3 chip_smoke.py --only degrade,disagg # the pager's consumers
+    python3 chip_smoke.py --only heimdall       # probes, micro, apps, fit
 
 Phases, one JSON line each, in this order (the train phases come first,
 while the host has the most memory to pin):
@@ -13,8 +14,8 @@ while the host has the most memory to pin):
   device         the card (nvidia-smi name and power limit), torch and CUDA
                  versions
   build          every kernel family's library (flash attention, paged
-                 attention, quant) compiled by nvcc for sm_90a from the
-                 repo's .cu sources, all at once; seconds and ptxas
+                 attention, quant, probes) compiled by nvcc for sm_90a from
+                 the repo's .cu sources, all at once; seconds and ptxas
                  register/spill lines for each, and the tensor-core (HMMA)
                  instructions in each paged attention kernel's SASS
   train_kernels  K6 and K7 (flat blockwise int8 quantize, dequantize) bit for
@@ -126,16 +127,33 @@ while the host has the most memory to pin):
                  the qos family's decode admission, each equal to the
                  CPU's; the qos summary and interference rows; every time
                  simulated
+  heimdall       the probe kernels P1-P4 (pointer chase, tier sum, atomic
+                 scatter-add, SM copy; hbm and pinned host memory read
+                 through its mapped device pointer) against their plain
+                 versions; HEIMDALL's micro family at the reference's
+                 default sizes (every row; each probe must launch) and its
+                 app family; P1's ns per access per tier and P2's host GB/s
+                 beside the copy engine's for the same 32 MiB;
+                 CalibrationRunner("tpu_v5e", source="torch") fitted from
+                 copies timed on the card (profile written to
+                 build/heimdall_profile.json; the host link's fit in
+                 (0, 64] GB/s, printed beside serve_offload's fetch rate);
+                 that profile through simulate_paged_decode,
+                 run_disagg_serve and the recalibrating run_degraded_serve
+                 with their pagers on the card, each report equal to the
+                 CPU's
   paged_sim      simulate_paged_decode on the gh200 preset with its pools
                  on the card: a simulator output, labelled so
   kv_quant       the kv_quant family's kernel rows (K2 and K3 wall time at
                  the family's small shape) run on the card
-  kernels       every ported kernel with its launches on the main paths,
-                 its error against its plain version and its times: CUDA
-                 events over 20 back-to-back calls (ms, plain_ms,
-                 library_ms) and the device time of the same calls from
-                 torch.profiler (kernel_device_ms, library_device_ms), the
-                 one to compare a call of a few microseconds by
+  kernels       every ported kernel (K1-K7, then the probes P1-P4) with its
+                 launches on the main paths, its error against its plain
+                 version and its times: CUDA events over 20 back-to-back
+                 calls (ms, plain_ms, library_ms) and the device time of
+                 the same calls from torch.profiler (kernel_device_ms,
+                 library_device_ms), the one to compare a call of a few
+                 microseconds by; bound_share is bound_ms over that device
+                 time
 
 then the card's name and power limit as nvidia-smi gives them, and last
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -1048,10 +1066,10 @@ def phase_pager() -> dict:
         tr["fetch_gb_per_s"] = tr["bytes"] / tr["fetch_s"] / 1e9
 
     L, G = g["layers"], g["gen"]
-    expect = {"flash_attention": 0, "paged_attention": L * G,
-              "paged_attention_quant": L * G,
-              "quantize_pages": 2 * L * G + 2 * L,
-              "dequantize_pages": 2 * L, "quantize": 0, "dequantize": 0}
+    expect = {name: 0 for name in launches}     # every other kernel: none
+    expect.update({"paged_attention": L * G, "paged_attention_quant": L * G,
+                   "quantize_pages": 2 * L * G + 2 * L,
+                   "dequantize_pages": 2 * L})
     out = {"phase": "pager", "layers": L, "sequences": g["seqs"],
            "prompt": g["prompt"], "decode_steps": G,
            "n_pages_per_pool": ps["n_pages"],
@@ -1354,9 +1372,11 @@ def phase_serve_offload(serve_tokens=None) -> dict:
                       for _, x in tree_flatten(stacked))
     slices_pinned = all(x[i].is_pinned() for _, x in tree_flatten(stacked)
                         for i in range(layers))
-    streams = [_layer_stream(StreamingParamServer(stacked, layers,
-                                                  layer).get, layers)
-               for _ in range(3)]
+    # one server (one copy stream) for every timed pass, as a serving loop
+    # keeps one: the caching allocator pools blocks per stream, so a server
+    # per pass would allocate its layer buffers anew inside the timing
+    server = StreamingParamServer(stacked, layers, layer)
+    streams = [_layer_stream(server.get, layers) for _ in range(3)]
     # do the copies overlap compute? the stream with each layer's MLP
     # products after its get, against the products alone (on a device
     # copy) and the stream alone
@@ -1365,9 +1385,9 @@ def phase_serve_offload(serve_tokens=None) -> dict:
     compute_s = statistics.median(_layer_stream(
         lambda i: layer(dev["decoder"], i), layers, rows)[1]
         for _ in range(3))
-    both_s = statistics.median(_layer_stream(
-        StreamingParamServer(stacked, layers, layer).get, layers, rows)[1]
-        for _ in range(3))
+    both_s = statistics.median(_layer_stream(server.get, layers, rows)[1]
+                               for _ in range(3))
+    del server
     del rows
     check = StreamingParamServer(stacked, layers, layer)
     equal, most_buffered = True, 0
@@ -2113,6 +2133,279 @@ def phase_disagg() -> dict:
     return out
 
 
+PROBES = ("pointer_chase", "tier_sum", "tier_scatter_add", "tier_copy")
+PROBE_SOURCE = "src/repro_torch/kernels/probes/csrc/probes.cu"
+PROBE_REPLACES = {"pointer_chase": "src/repro/heimdall/micro.py:34",
+                  "tier_sum": "src/repro/heimdall/micro.py:47",
+                  "tier_scatter_add": "src/repro/heimdall/micro.py:136",
+                  "tier_copy": "src/repro/heimdall/micro.py:217"}
+PCIE5_X16_BYTES_PER_S = 64e9     # PCIe Gen5 x16, each way
+SUM_RTOL = 1e-5                  # P2 against a float64 sum, relative
+MiB = 1 << 20
+
+
+def probe_checks(dev) -> dict:
+    """P1-P4 against their plain versions at the micro family's shapes, on
+    both tiers: P1's final index (every chase and sweep of micro_latency,
+    micro_loaded_latency and micro_cache_heatmap; the 16 MiB sweep wraps
+    int32), P3's counts and P4's copy exactly, P2 within ``SUM_RTOL`` of a
+    float64 sum. The plain P1 runs on a CPU copy of the same values."""
+    import numpy as np
+    import torch
+    from repro_torch.heimdall import micro
+    from repro_torch.heimdall.harness import TIERS, place
+    from repro_torch.kernels.probes import (pointer_chase, pointer_chase_ref,
+                                            tier_copy, tier_scatter_add,
+                                            tier_scatter_add_ref, tier_sum)
+    out = {"pointer_chase": [], "tier_sum": [], "tier_scatter_add": [],
+           "tier_copy": []}
+    perm = micro._perm(1 << 16, 0)
+    for tier in TIERS:
+        p = place(perm, tier, dev)
+        for steps in (2048, 1024):
+            got = int(pointer_chase(p, steps, device=dev))
+            want = pointer_chase_ref(perm, steps)
+            out["pointer_chase"].append({"tier": tier, "mode": "chase",
+                                         "n": perm.numel(), "steps": steps,
+                                         "abs_err": abs(got - want),
+                                         "ok": got == want})
+    for ws_kb in micro.HEATMAP_WS_KB:
+        pc = micro._perm(ws_kb * 256, 1)
+        got = int(pointer_chase(pc.to(dev), micro.HEATMAP_STEPS, "sweep"))
+        want = pointer_chase_ref(pc, micro.HEATMAP_STEPS, "sweep")
+        out["pointer_chase"].append({"tier": "hbm", "mode": "sweep",
+                                     "n": pc.numel(),
+                                     "steps": micro.HEATMAP_STEPS,
+                                     "abs_err": abs(got - want),
+                                     "ok": got == want})
+    for tier in TIERS:
+        for nbytes in (32 * MiB, 16 * MiB, 4 * MiB, 256 << 10):
+            x = place(torch.arange(nbytes // 4, dtype=torch.float32), tier,
+                      dev)
+            got = float(tier_sum(x, device=dev))
+            want = float(x.double().sum())
+            rel = abs(got - want) / abs(want)
+            out["tier_sum"].append({"tier": tier, "bytes": nbytes,
+                                    "abs_err": abs(got - want),
+                                    "rel_err": rel, "ok": rel <= SUM_RTOL})
+    for tier, collide, idx in micro.atomics_inputs():
+        n = idx.size
+        t = place(torch.zeros(n, dtype=torch.float32), tier, dev)
+        ii = torch.from_numpy(idx).to(dev)
+        u = torch.ones(n, dtype=torch.float32, device=dev)
+        tier_scatter_add(t, ii, u)
+        torch.cuda.synchronize()
+        want = tier_scatter_add_ref(torch.zeros(n), ii.cpu(), u.cpu())
+        out["tier_scatter_add"].append({
+            "tier": tier, "collide": collide,
+            "abs_err": float((t.cpu() - want).abs().max()),
+            "ok": bool(torch.equal(t.cpu(), want)),
+            "max_count": float(t.max())})
+    for tier in TIERS:
+        for kb in (64, 1024, 8192):
+            x = place(torch.arange(kb * 256, dtype=torch.float32), tier, dev)
+            o = tier_copy(x, torch.empty(x.numel(), dtype=torch.float32,
+                                         device=dev))
+            out["tier_copy"].append({
+                "tier": tier, "kb": kb,
+                "abs_err": float((o.cpu() - x.cpu()).abs().max()),
+                "ok": bool(torch.equal(o.cpu(), x.cpu()))})
+    torch.cuda.synchronize()
+    return out
+
+
+def probe_timings(dev) -> dict:
+    """Each probe's time at the micro family's shape beside its plain
+    version's, one library call's where one computes the same function,
+    and its bound: P1 a 2048-step chase of the 256 KiB working set (hbm,
+    and host for the contrast); P2 a 32 MiB sum (hbm with a cold L2; host
+    beside the copy engine's bulk copy of the same bytes); P3 16384 spread
+    updates into hbm; P4 an 8 MiB copy from host memory, beside the copy
+    engine's."""
+    import torch
+    from repro_torch.heimdall import micro
+    from repro_torch.heimdall.harness import place
+    from repro_torch.kernels.probes import (pointer_chase, pointer_chase_ref,
+                                            tier_copy, tier_copy_ref,
+                                            tier_scatter_add,
+                                            tier_scatter_add_ref, tier_sum,
+                                            tier_sum_ref)
+    out = {}
+    perm = micro._perm(1 << 16, 0)
+    p = {tier: place(perm, tier, dev) for tier in ("hbm", "host")}
+    steps = 2048
+    chase = {tier: cuda_ms(lambda t=tier: pointer_chase(p[t], steps,
+                                                        device=dev))
+             for tier in ("hbm", "host")}
+    out["pointer_chase"] = {
+        "kernel_ms": chase["hbm"], "host_ms": chase["host"],
+        "ns_per_access": {t: ms * 1e6 / steps for t, ms in chase.items()},
+        "kernel_device": device_ms_per_call(
+            lambda: pointer_chase(p["hbm"], steps, device=dev)),
+        "library_device": None,
+        "plain_ms": cuda_ms(lambda: pointer_chase_ref(p["hbm"], steps),
+                            iters=2, warmup=1),
+        "library_ms": None, **bound(steps * 4 + 4)}
+
+    n = 32 * MiB // 4
+    sets = [place(torch.arange(n, dtype=torch.float32), "hbm", dev)
+            for _ in range(cold_sets(32 * MiB))]
+    x_host = place(torch.arange(n, dtype=torch.float32), "host", dev)
+    run = rotation([lambda a=a: tier_sum(a, device=dev) for a in sets])
+    lib = rotation([lambda a=a: torch.sum(a) for a in sets])
+    host_ms = cuda_ms(lambda: tier_sum(x_host, device=dev))
+    dst = torch.empty(n, dtype=torch.float32, device=dev)
+    bulk_ms = cuda_ms(lambda: dst.copy_(x_host, non_blocking=True))
+    # a call is a memset of its scratch and the kernel: two device events
+    out["tier_sum"] = {
+        "kernel_ms": cuda_ms(run),
+        "kernel_device": device_ms_per_call(run, kernels_per_call=2),
+        "plain_ms": cuda_ms(rotation([lambda a=a: tier_sum_ref(a, dev)
+                                      for a in sets])),
+        "library_ms": cuda_ms(lib),
+        "library_device": device_ms_per_call(lib, kernels_per_call=None),
+        "host_ms": host_ms, "host_gb_per_s": 32 * MiB / host_ms / 1e6,
+        "bulk_copy_ms": bulk_ms,
+        "bulk_copy_gb_per_s": 32 * MiB / bulk_ms / 1e6,
+        **bound(32 * MiB + 4)}
+
+    m = 1 << 14
+    idx = torch.from_numpy(micro.atomics_inputs(m)[0][2]).to(dev)
+    u = torch.ones(m, dtype=torch.float32, device=dev)
+    t = torch.zeros(m, dtype=torch.float32, device=dev)
+    out["tier_scatter_add"] = {
+        "kernel_ms": cuda_ms(lambda: tier_scatter_add(t, idx, u)),
+        "kernel_device": device_ms_per_call(
+            lambda: tier_scatter_add(t, idx, u)),
+        "plain_ms": cuda_ms(lambda: tier_scatter_add_ref(t, idx, u)),
+        "library_ms": cuda_ms(lambda: t.index_add_(0, idx, u)),
+        "library_device": device_ms_per_call(
+            lambda: t.index_add_(0, idx, u), kernels_per_call=None),
+        **bound(2 * m * 4 + 2 * m * 4)}
+
+    nb = 8 * MiB
+    xh = place(torch.arange(nb // 4, dtype=torch.float32), "host", dev)
+    o = torch.empty(nb // 4, dtype=torch.float32, device=dev)
+    out["tier_copy"] = {
+        "kernel_ms": cuda_ms(lambda: tier_copy(xh, o)),
+        "kernel_device": device_ms_per_call(lambda: tier_copy(xh, o)),
+        "plain_ms": cuda_ms(lambda: tier_copy_ref(xh, o)),
+        "library_ms": cuda_ms(lambda: o.copy_(xh, non_blocking=True)),
+        "library_device": device_ms_per_call(
+            lambda: o.copy_(xh, non_blocking=True), kernels_per_call=None),
+        "link_bound_ms": nb / PCIE5_X16_BYTES_PER_S * 1e3,
+        **bound(2 * nb)}
+    return out
+
+
+def _fit_json(profile) -> dict:
+    return {f"{e.src}->{e.dst}": {
+        "source": sorted({s.source for s in profile.samples
+                          if (s.src, s.dst) == (e.src, e.dst)}),
+        "bandwidth_gb_per_s": e.bandwidth / 1e9,
+        "latency_us": e.latency * 1e6, "rel_residual": e.rel_residual,
+        "efficiency": e.efficiency, "downweighted": e.n_downweighted,
+        "samples": e.n_samples} for e in profile.links}
+
+
+def phase_heimdall(fetch_gb_per_s=None) -> dict:
+    """HEIMDALL on the card: (a) P1-P4 held against their plain versions;
+    (b) the micro family at the reference's default sizes on hbm and host,
+    every row, counted: each probe must launch; P1's ns per access per
+    tier and P2's host GB/s beside the copy engine's for the same bytes;
+    (c) the app family, every row; (d) CalibrationRunner("tpu_v5e",
+    source="torch"): the fit per route from copies timed on the card, the
+    profile written to build/, the host link's fitted bandwidth above
+    0 and at most PCIe Gen5 x16's 64 GB/s, beside serve_offload's fetch
+    rate where that phase ran; (e) the profile through the three calibrated
+    paths with their pagers on the card, each report equal to the CPU's."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.calibrate import CalibrationProfile, CalibrationRunner
+    from repro_torch.heimdall import apps, micro
+    from repro_torch.launch.serve import simulate_paged_decode
+    from repro_torch.obs import DriftSentinel, Tracer
+    from repro_torch.runtime.degrade import (host_link_degraded,
+                                             run_degraded_serve)
+    from repro_torch.serving.disagg import DisaggConfig, run_disagg_serve
+
+    dev = torch.device("cuda", 0)
+    out = {"phase": "heimdall", "checks": probe_checks(dev)}
+    failed = [f"{name} {c}" for name, cases in out["checks"].items()
+              if isinstance(cases, list) for c in cases if not c["ok"]]
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rows = [r.csv() for fn in micro.ALL_MICRO for r in fn(device=dev)]
+    out["micro_s"] = time.perf_counter() - t0
+    out["launches"] = {k: kernels.LAUNCHES[k] for k in PROBES}
+    out["micro"] = rows
+    failed += [f"{k} never launched on the micro family's path"
+               for k, v in out["launches"].items() if v == 0]
+    derived = {r.split(",")[0]: r.split(",", 2)[2] for r in rows}
+    out["ns_per_access"] = {t: derived[f"micro_latency/{t}"]
+                            for t in ("hbm", "host")}
+    t0 = time.perf_counter()
+    out["apps"] = [r.csv() for fn in apps.ALL_APPS for r in fn(device=dev)]
+    out["apps_s"] = time.perf_counter() - t0
+    out["timing"] = probe_timings(dev)
+    ts = out["timing"]["tier_sum"]
+    out["host_loads_vs_copy_engine"] = {
+        "bytes": 32 * MiB, "p2_host_gb_per_s": ts["host_gb_per_s"],
+        "bulk_copy_gb_per_s": ts["bulk_copy_gb_per_s"]}
+
+    t0 = time.perf_counter()
+    profile = CalibrationRunner("tpu_v5e", source="torch",
+                                device=dev).calibrate()
+    out["calibrate_s"] = time.perf_counter() - t0
+    dest = ROOT / "build"
+    dest.mkdir(exist_ok=True)
+    profile.save(str(dest / "heimdall_profile.json"))
+    if CalibrationProfile.load(str(dest / "heimdall_profile.json")) \
+            .to_json() != profile.to_json():
+        failed.append("the saved profile does not load back equal")
+    out["profile"] = {"source": profile.source, "machine": profile.machine,
+                      "fit": _fit_json(profile)}
+    host = profile.estimate("host_dram", "chip0")
+    out["host_link"] = {"fitted_gb_per_s": host.bandwidth / 1e9,
+                        "fitted_latency_us": host.latency * 1e6,
+                        "serve_offload_fetch_gb_per_s": fetch_gb_per_s}
+    if not 0 < host.bandwidth <= PCIE5_X16_BYTES_PER_S:
+        failed.append(f"fitted host bandwidth {host.bandwidth / 1e9} GB/s "
+                      f"is outside (0, 64]")
+
+    reps = {}
+    for where in ("cuda", "cpu"):
+        sent = DriftSentinel(profile, preset="tpu_v5e")
+        reps[where] = {
+            "paged_decode": simulate_paged_decode(
+                calibration_profile=profile, device=where),
+            "disagg": run_disagg_serve(
+                DisaggConfig(system="tpu_v5e"), calibration_profile=profile,
+                tracer=Tracer(clock=lambda: 0.0), device=where).to_json(),
+            "degraded": run_degraded_serve(
+                host_link_degraded(), calibration_profile=profile,
+                sentinel=sent, recalibrate=True, device=where).to_json()}
+    for what in reps["cuda"]:
+        _same_reports(f"calibrated {what}", reps["cuda"][what],
+                      reps["cpu"][what])
+    deg = reps["cuda"]["degraded"]
+    out["calibrated"] = {
+        "paged_decode": {k: reps["cuda"]["paged_decode"][k]
+                         for k in ("calibrated", "bytes_reduction",
+                                   "prefetch_speedup")},
+        "disagg_route": reps["cuda"]["disagg"]["route"],
+        "degraded": {"detect_round": deg["detect_round"],
+                     "recovery_frac": deg["recovery_frac"],
+                     "recals": len(deg.get("recal") or ())}}
+    if not deg.get("recal"):
+        failed.append("the recalibrating degraded serve never recalibrated")
+    emit(out)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
 PAGED_SOURCES = {
     "paged_attention": ("src/repro_torch/kernels/paged_attention/csrc/"
                         "paged_attention.cu",
@@ -2141,10 +2434,13 @@ def _device_cols(t: dict) -> dict:
 
 
 def kernels_line(kern: dict, serve: dict, offload: dict, paged: dict,
-                 pager: dict, flat: dict, compressed: dict) -> dict:
+                 pager: dict, flat: dict, compressed: dict,
+                 heimdall: dict) -> dict:
     """Every ported kernel: launches on its main paths (K1: the HBM and the
-    offloaded engines' counted runs), agreement with its plain version, and
-    its times at the main path's shape."""
+    offloaded engines' counted runs; P1-P4: the micro family's), agreement
+    with its plain version, its times at the main path's shape, and its
+    share of its bound (bound over device time, or over event time where
+    the profiler recorded none)."""
     yi = kern["yi_prefill_bf16"]
     rows = [{
         "name": "flash_attention", "route": "cuda",
@@ -2201,6 +2497,32 @@ def kernels_line(kern: dict, serve: dict, offload: dict, paged: dict,
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    checks = heimdall["checks"]
+    for name in PROBES:
+        t = heimdall["timing"][name]
+        cases = checks[name]
+        row = {
+            "name": name, "route": "cuda", "source": PROBE_SOURCE,
+            "replaces": PROBE_REPLACES[name],
+            "launches": heimdall["launches"][name],
+            "matched": all(c["ok"] for c in cases),
+            "max_abs_err": max(c["abs_err"] for c in cases),
+            "ms": t["kernel_ms"], **_device_cols(t),
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]}
+        if name == "tier_sum":
+            row["max_rel_err"] = max(c["rel_err"] for c in cases)
+        if name == "pointer_chase":
+            row["ns_per_access"] = t["ns_per_access"]
+        if "host_ms" in t:
+            row["host_ms"] = t["host_ms"]
+        if "link_bound_ms" in t:
+            row["link_bound_ms"] = t["link_bound_ms"]
+        rows.append(row)
+    for row in rows:
+        row["bound_share"] = round(
+            row["bound_ms"] / (row["kernel_device_ms"] or row["ms"]), 3)
     return {"kernels": rows}
 
 
@@ -2219,9 +2541,11 @@ def phase_all() -> None:
     pager = phase_pager()
     phase_degrade()
     phase_disagg()
+    heimdall = phase_heimdall(offload["fetch_gb_per_s"])
     phase_paged_sim()
     phase_kv_quant()
-    emit(kernels_line(kern, serve, offload, paged, pager, flat, compressed))
+    emit(kernels_line(kern, serve, offload, paged, pager, flat, compressed,
+                      heimdall))
 
 
 @contextlib.contextmanager
@@ -2243,7 +2567,8 @@ def expandable_segments():
 
 ONLY = {"serve": phase_serve, "serve_offload": phase_serve_offload,
         "pager": phase_pager, "paged_kernels": phase_paged_kernels,
-        "degrade": phase_degrade, "disagg": phase_disagg}
+        "degrade": phase_degrade, "disagg": phase_disagg,
+        "heimdall": phase_heimdall}
 
 
 def main(argv=None) -> int:

@@ -4,9 +4,12 @@ The port's copy of the reference's ``repro/core/tiers.py``: the paper's
 Table 1 / Figure 1 as tiers (capacity, bandwidth, latency) and the links
 between them. ``tpu_v5e`` is the reference's default topology, from
 published v5e numbers: it describes a TPU host, not the H100 the port runs
-on, and the planners budget against it until the H100 host preset (the
-calibration slice) exists. ``from_fabric`` derives the same model from any
-fabric preset, ``from_calibration`` from measured tiers.
+on, and the planners budget against it by default. The card's own link
+constants come from a calibrated system: ``from_fabric(from_profile(p))``
+with a profile ``p`` fitted from copies timed on the card
+(``calibrate.CalibrationRunner(source="torch")``). ``from_fabric`` derives
+the same model from any fabric preset, ``from_calibration`` from measured
+tiers.
 
 Paper tier -> tier here:
     DIMM (local)      -> HBM           (fast, small, 'device')

@@ -1,7 +1,9 @@
 """Fabric presets mirroring the paper's Table 1 machines.
 
-The port's copy of the reference's ``repro/fabric/systems.py``. Calibrated
-systems (``from_profile``) come with the calibration slice.
+The port's copy of the reference's ``repro/fabric/systems.py``, with
+calibrated systems (``from_profile``): a preset whose link constants were
+rescaled from a ``CalibrationProfile``, such as one fitted from copies timed
+on the card.
 
 Each preset is a ``System``: a fabric graph plus the reference compute node
 and a tier-name map, so the cost model / placement engine / benchmarks can
@@ -232,9 +234,73 @@ def get_system(name: str) -> System:
 
 
 def from_profile(profile, preset: Optional[str] = None) -> System:
-    """Calibrated system: the preset's links rescaled from measurements
-    (the reference's ``repro.fabric.systems.from_profile``)."""
-    raise NotImplementedError(
-        "calibrated systems (from_profile) are not ported yet; they come "
-        "with the calibration slice, whose probes fit the link constants "
-        "on the card")
+    """Calibrated system: the preset's links rescaled from measurements.
+
+    ``profile`` is a ``repro_torch.calibrate.CalibrationProfile`` (one
+    written by either package); ``preset`` defaults to the system the
+    profile was measured on. Each fitted route estimate rescales the
+    preset graph:
+
+      * the route's *bottleneck* link takes the fitted bandwidth (that is
+        the only link the bandwidth measurement can see);
+      * every link on the route scales its latency by the route's fitted
+        latency ratio (hop latencies are not separable from an end-to-end
+        probe, so the ratio is distributed).
+
+    Links measured by several routes take the median proposed scale.
+    Unmeasured links of a *measured link type* take that type's median
+    scale — the two PCIe lanes of a host are the same silicon, and leaving
+    a sibling link at nominal would let shortest-path routing escape the
+    calibration through it. Types never measured keep nominal constants.
+    The result is a ``System`` like any preset — ``TierTopology.
+    from_fabric`` derives calibrated tier constants from it, so costmodel /
+    placement / pager plan on fitted numbers with no further wiring.
+    """
+    import statistics
+
+    base = get_system(preset or profile.system)
+    bw_scales: dict = {}
+    lat_scales: dict = {}
+    type_bw: dict = {}
+    type_lat: dict = {}
+    for est in profile.links:
+        try:
+            route = base.fabric.route(est.src, est.dst)
+        except ValueError:
+            raise ValueError(
+                f"profile estimate {est.src}->{est.dst} has no route in "
+                f"preset {base.name!r}; the profile was measured on "
+                f"{profile.system!r} — pass a compatible preset") from None
+        if not route:
+            continue
+        bott = min(route, key=lambda l: l.bandwidth)
+        key = (min(bott.src, bott.dst), max(bott.src, bott.dst))
+        bw_ratio = est.bandwidth / bott.bandwidth
+        bw_scales.setdefault(key, []).append(bw_ratio)
+        type_bw.setdefault(bott.type, []).append(bw_ratio)
+        nominal_lat = sum(l.latency for l in route)
+        ratio = est.latency / nominal_lat if nominal_lat > 0 else 1.0
+        for link in route:
+            k = (min(link.src, link.dst), max(link.src, link.dst))
+            lat_scales.setdefault(k, []).append(ratio)
+            type_lat.setdefault(link.type, []).append(ratio)
+    scales = {}
+    seen: set = set()
+    for (a, b), link in base.fabric.links.items():
+        key = (min(a, b), max(a, b))
+        if key in seen:
+            continue
+        seen.add(key)
+        bw = (statistics.median(bw_scales[key]) if key in bw_scales
+              else statistics.median(type_bw[link.type])
+              if link.type in type_bw else 1.0)
+        lat = (statistics.median(lat_scales[key]) if key in lat_scales
+               else statistics.median(type_lat[link.type])
+               if link.type in type_lat else 1.0)
+        scales[key] = (bw, lat)
+    fab = base.fabric.rescaled(scales, name=f"{base.name}+calibrated")
+    return dataclasses.replace(
+        base, fabric=fab, provenance="calibrated",
+        description=f"{base.description} (calibrated from "
+                    f"{len(profile.links)} fitted routes, "
+                    f"source={profile.source})")

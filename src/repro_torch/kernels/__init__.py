@@ -37,7 +37,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 FAMILIES = {"flash_attention": ("flash_attention",),
             "paged_attention": ("paged_attention", "paged_attention_quant"),
             "quant": ("quantize_pages", "dequantize_pages", "quantize",
-                      "dequantize")}
+                      "dequantize"),
+            "probes": ("pointer_chase", "tier_sum", "tier_scatter_add",
+                       "tier_copy")}
 LAUNCHES: dict[str, int] = {k: 0 for ks in FAMILIES.values() for k in ks}
 
 # name -> {"seconds": build wall time, "log": nvcc's output (ptxas usage)}

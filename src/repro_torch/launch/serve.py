@@ -43,8 +43,15 @@ simulated on the ``--system`` preset:
       --device cpu
   python -m repro_torch.launch.serve --degrade-sim --device cpu
 
-Calibration profiles (``--calibration-profile``, ``--recalibrate``) come
-with the calibration slice.
+``--calibration-profile p.json`` (a ``CalibrationProfile``, such as one
+``CalibrationRunner(source="torch")`` fitted from copies timed on the card)
+makes the three simulated modes plan on the fitted link constants;
+``--recalibrate`` closes the drift loop in ``--degrade-sim``:
+
+  python -m repro_torch.launch.serve --paged-sim \
+      --calibration-profile p.json --device cpu
+  python -m repro_torch.launch.serve --degrade-sim \
+      --calibration-profile p.json --recalibrate --device cpu
 """
 
 from __future__ import annotations
@@ -505,11 +512,13 @@ def simulate_paged_decode(*, requests: int = 8, prompt: int = 1024,
     premise is the *contended* regime the kv_quant family measures; raise
     it to see the DMA-QoS regime (the qos family's territory).
 
-    ``calibration_profile`` (the reference's calibrated machine) is not
-    ported yet and raises: it comes with the calibration slice. The two
-    pagers' pools live on ``device`` (default ``cuda``; raises if there is
-    none); the schedule itself is a simulation on the ``system_name``
-    preset, not a measurement of the device.
+    ``calibration_profile`` (a ``repro_torch.calibrate.CalibrationProfile``
+    or a path to its JSON artifact) swaps the nominal preset for the
+    calibrated machine — every ETA and admission deadline then rests on
+    *fitted* link constants instead of datasheet numbers. The two pagers'
+    pools live on ``device`` (default ``cuda``; raises if there is none);
+    the schedule itself is a simulation on the (calibrated) preset, not a
+    measurement of the device.
 
     An enabled ``tracer`` records both runs into one trace, each scoped by
     label — the fp16 run's fabric tracks live under process
@@ -518,13 +527,14 @@ def simulate_paged_decode(*, requests: int = 8, prompt: int = 1024,
     metrics snapshot is embedded in the report under ``"metrics"``.
     """
     from repro_torch.fabric.contention import Flow
-    from repro_torch.fabric.systems import get_system
+    from repro_torch.fabric.systems import from_profile, get_system
 
     if calibration_profile is not None:
-        raise NotImplementedError(
-            "calibration_profile: calibrated systems are not ported yet; "
-            "they come with the calibration slice")
-    system = get_system(system_name)
+        from repro_torch.calibrate.profile import load_profile
+        system = from_profile(load_profile(calibration_profile),
+                              preset=system_name)
+    else:
+        system = get_system(system_name)
     # fixed-size background stream: both the fp16 and int8 runs must see
     # IDENTICAL contention (an open-ended flow would be auto-sized from
     # each cache's own page bytes, quietly shrinking the int8 background)
@@ -533,7 +543,7 @@ def simulate_paged_decode(*, requests: int = 8, prompt: int = 1024,
     out = {"system": system_name, "requests": requests,
            "tokens_per_seq": toks, "step_us": step_us,
            "background": True,
-           "calibrated": False}
+           "calibrated": calibration_profile is not None}
     caches = paired_kv_caches(requests=requests, tokens=toks,
                               page_size=page_size, kv_heads=kv_heads,
                               head_dim=head_dim, weights=weights,
@@ -607,6 +617,9 @@ def main(argv=None):
                     help="fabric preset the simulated modes run on")
     ap.add_argument("--step-us", type=float, default=100.0,
                     help="decode step time of the simulated modes")
+    ap.add_argument("--calibration-profile", default=None,
+                    help="path to a CalibrationProfile JSON; the simulated "
+                         "modes then plan on fitted link constants")
     ap.add_argument("--trace-out", default=None, metavar="TRACE.json",
                     help="write a Chrome trace-event file (open in "
                          "https://ui.perfetto.dev) covering the run: "
@@ -633,6 +646,11 @@ def main(argv=None):
                     help="after the run, serve the same OpenMetrics "
                          "snapshot over HTTP at /metrics until "
                          "interrupted (a scrape endpoint)")
+    ap.add_argument("--recalibrate", action="store_true",
+                    help="close the drift loop in --degrade-sim: a "
+                         "DriftSentinel flag triggers a single-route "
+                         "re-probe + refit + hot-swap (needs "
+                         "--calibration-profile)")
     args = ap.parse_args(argv)
 
     tracer = NULL_TRACER
@@ -657,8 +675,9 @@ def main(argv=None):
     if args.paged_sim:
         print(json.dumps(simulate_paged_decode(
             requests=args.requests, gen=args.gen, system_name=args.system,
-            step_us=args.step_us, tracer=tracer, device=args.device),
-            indent=2))
+            step_us=args.step_us,
+            calibration_profile=args.calibration_profile, tracer=tracer,
+            device=args.device), indent=2))
         _flush_obs(args, tracer, recorder, full)
         return
 
@@ -668,7 +687,8 @@ def main(argv=None):
             DisaggConfig(system=args.system, requests=args.requests,
                          prompt=args.prompt, gen=args.gen,
                          step_us=args.step_us, kv_dtype=args.kv_dtype),
-            tracer=tracer, device=args.device)
+            calibration_profile=args.calibration_profile, tracer=tracer,
+            device=args.device)
         print(json.dumps(report.to_json(), indent=2))
         _flush_obs(args, tracer, recorder, full)
         return
@@ -682,12 +702,28 @@ def main(argv=None):
         sched = host_link_degraded(system=args.system,
                                    at_round=args.degrade_round,
                                    factor=args.degrade_factor)
+        sentinel = None
+        if args.recalibrate:
+            if not args.calibration_profile:
+                ap.error("--recalibrate needs --calibration-profile "
+                         "(the drift sentinel's expectation and the "
+                         "recalibrator's profile to hot-swap)")
+            from repro_torch.calibrate import CalibrationProfile
+            from repro_torch.obs import DriftSentinel
+            prof = CalibrationProfile.load(args.calibration_profile)
+            sentinel = DriftSentinel(
+                prof, preset=args.system,
+                tracer=(tracer.scoped("react")
+                        if tracer.enabled else tracer))
         react = run_degraded_serve(
             sched, cfg=cfg, react=True,
+            calibration_profile=args.calibration_profile,
+            sentinel=sentinel, recalibrate=args.recalibrate,
             tracer=tracer.scoped("react") if tracer.enabled else tracer,
             recorder=recorder, device=args.device)
         base = run_degraded_serve(
             sched, cfg=cfg, react=False,
+            calibration_profile=args.calibration_profile,
             tracer=tracer.scoped("baseline") if tracer.enabled else tracer,
             device=args.device)
         print(json.dumps({"react": react.to_json(),

@@ -1,9 +1,7 @@
 """repro_torch.obs — tracing + metrics for the fabric-to-serving stack.
 
-The port's copy of the reference's ``repro/obs``. Of the layers named
-below, the port emits from the fabric simulator, the pager and the serve
-engine and scheduler; the calibration replays come with the calibration
-slice.
+The port's copy of the reference's ``repro/obs``, emitting from every
+layer named below.
 
 The paper's core method is observation: Heimdall exposes what the
 interconnect is actually doing, and every optimization follows from seeing

@@ -1,9 +1,8 @@
 """Drift sentinel: observed transfer timings vs calibration predictions.
 
-The port's copy of the reference's ``repro/obs/drift.py``. A ``System``
-expectation works as in the reference; a ``CalibrationProfile`` goes
-through the port's ``fabric.systems.from_profile``, which raises until the
-calibration slice fits link constants on the card.
+The port's copy of the reference's ``repro/obs/drift.py``: the
+expectation is a ``System`` or a ``CalibrationProfile`` (built into one by
+``fabric.systems.from_profile``).
 
 Closes the Cohet-style loop the ROADMAP calls for: a ``CalibrationProfile``
 is a statement about the machine at fit time, and the machine drifts —

@@ -566,10 +566,9 @@ def run_degraded_serve(schedule: DegradationSchedule, *,
     detector for reporting but never acts — the control arm every
     recovery claim is judged against.
 
-    ``calibration_profile`` (the reference's calibrated machine, whose
-    fitted link constants anchor the expected fetch time and every plan)
-    raises through ``fabric.systems.from_profile`` until the calibration
-    slice fits link constants on the card.
+    ``calibration_profile`` (a ``CalibrationProfile`` or a path to its
+    JSON artifact) anchors the expected fetch time (and every plan) on the
+    calibrated machine's fitted link constants.
 
     The cache's pools live on ``device`` (default ``cuda``; raises if
     there is none); every time in the report is simulated on the
@@ -590,9 +589,13 @@ def run_degraded_serve(schedule: DegradationSchedule, *,
     alerting SLO window.
 
     ``recalibrate=True`` (needs ``sentinel`` + ``calibration_profile``)
-    closes the drift loop in the reference through its
-    ``AutoRecalibrator`` (``calibrate/recal.py``); here it raises: it
-    comes with the calibration slice.
+    closes the drift loop: the sentinel's sticky flag triggers an
+    ``AutoRecalibrator`` that re-probes only the flagged route against
+    the round's live (degraded) fabric, refits, hot-swaps the constants
+    into the sentinel's expectation and the detector's fetch anchor, and
+    acknowledges the flag — so the drift ratio converges back to ~1.0 on
+    the machine as it now is. Each swap lands in the report's ``recal``
+    entries with the route's subsequent drift ratios.
     """
     from repro_torch.fabric.contention import Flow
     from repro_torch.fabric.systems import from_profile, get_system
@@ -601,19 +604,17 @@ def run_degraded_serve(schedule: DegradationSchedule, *,
                                              attribution_summary,
                                              event_cursor, events_since)
 
-    if recalibrate:
-        if sentinel is None or calibration_profile is None:
-            raise ValueError("recalibrate=True needs both sentinel= and "
-                             "calibration_profile= (the flag source and "
-                             "the profile to refit)")
-        raise NotImplementedError(
-            "recalibrate=True: the AutoRecalibrator (calibrate/recal.py) "
-            "is not ported yet; it comes with the calibration slice")
+    if recalibrate and (sentinel is None or calibration_profile is None):
+        raise ValueError("recalibrate=True needs both sentinel= and "
+                         "calibration_profile= (the flag source and "
+                         "the profile to refit)")
     device = resolve_device(device)
     if recorder is not None and not tracer.enabled:
         tracer = recorder
 
     if calibration_profile is not None:
+        from repro_torch.calibrate.profile import load_profile
+        calibration_profile = load_profile(calibration_profile)
         base = from_profile(calibration_profile, preset=cfg.system)
     else:
         base = get_system(cfg.system)
@@ -634,8 +635,31 @@ def run_degraded_serve(schedule: DegradationSchedule, *,
     ref_sched = ref.schedule(seqs, cfg.gen)
     slo_s = cfg.slo_slack * ref_sched.mean_completion
 
-    detector = DegradationDetector(ref_sched.prefetch_total,
-                                   cfg=cfg.detector, tracer=tracer)
+    # mutable anchor: auto-recalibration hot-swaps the expected fetch
+    # time when the spill route's constants are refit mid-serve
+    anchor = {"fetch_s": ref_sched.prefetch_total}
+    detector = DegradationDetector(cfg=cfg.detector, tracer=tracer,
+                                   baseline=lambda: anchor["fetch_s"])
+
+    recal_ctl = None
+    pending_recal: list = []
+    recal_records: list = []
+    if recalibrate:
+        from repro_torch.calibrate.recal import AutoRecalibrator
+        recal_ctl = AutoRecalibrator(calibration_profile,
+                                     preset=cfg.system, sentinel=sentinel,
+                                     tracer=tracer)
+        prev_on_flag = sentinel.on_flag
+
+        def _queue_recal(route, info, _prev=prev_on_flag):
+            if _prev is not None:
+                _prev(route, info)
+            pending_recal.append(route)
+
+        sentinel.on_flag = _queue_recal
+    fetch_route_key = f"{base.tier_node(base.kv_tiers[1])}->{base.compute}"
+    ref_plan = getattr(ref_sched.plan, "transfer_plan", ref_sched.plan)
+    ref_wire_bytes = float(getattr(ref_plan, "wire_bytes", 0) or 4 << 20)
 
     recovery = RecoveryController(
         cache, fast_budget_frac=cfg.fast_budget_frac,
@@ -721,7 +745,27 @@ def run_degraded_serve(schedule: DegradationSchedule, *,
         if sentinel is not None:
             plan_r = getattr(sched.plan, "transfer_plan", sched.plan)
             if getattr(plan_r, "transfers", ()):
-                sentinel.observe_plan(plan_r, background=bg, ts=t)
+                ratio = sentinel.observe_plan(plan_r, background=bg, ts=t)
+                if ratio is not None:
+                    route_lbl = plan_r.route.label
+                    for rec in recal_records:
+                        if rec["route"] == route_lbl \
+                                and rec["round"] < r:
+                            rec["post_ratios"].append(round(ratio, 6))
+            if recal_ctl is not None and pending_recal:
+                # the drift loop's react leg: re-probe only the flagged
+                # route on this round's live fabric, hot-swap, ack
+                for route_key in pending_recal:
+                    res = recal_ctl.recalibrate(route_key,
+                                                truth_system=sys_r, ts=t)
+                    if route_key == fetch_route_key:
+                        anchor["fetch_s"] *= res.time_scale(
+                            ref_wire_bytes)
+                    rec = res.to_json()
+                    rec["round"] = r
+                    rec["post_ratios"] = []
+                    recal_records.append(rec)
+                pending_recal.clear()
         corroborated = False
         if attrs and monitor is not None \
                 and monitor.alerting("interactive"):
@@ -816,4 +860,4 @@ def run_degraded_serve(schedule: DegradationSchedule, *,
         attribution=attribution,
         slo=monitor.report() if monitor is not None else None,
         drift_routes=sentinel.report() if sentinel is not None else None,
-        recal=None)
+        recal=tuple(recal_records) if recal_records else None)

@@ -261,9 +261,10 @@ def run_disagg_serve(cfg: DisaggConfig = DisaggConfig(), *, system=None,
     one built when tracing) is fed one end-to-end latency per sequence
     under class ``"interactive"`` — its snapshot rides along in the report.
 
-    ``calibration_profile`` raises through ``fabric.systems.from_profile``
-    until the calibration slice. The decode node's pager lives on
-    ``device`` (default ``cuda``; raises if there is none).
+    ``calibration_profile`` (a ``CalibrationProfile`` or a path to its JSON
+    artifact) plans on the calibrated machine's fitted link constants. The
+    decode node's pager lives on ``device`` (default ``cuda``; raises if
+    there is none).
     """
     from repro_torch.launch.serve import admission_schedule
     from repro_torch.obs.attribution import (attribute_requests,
@@ -276,8 +277,10 @@ def run_disagg_serve(cfg: DisaggConfig = DisaggConfig(), *, system=None,
 
     if system is None:
         if calibration_profile is not None:
+            from repro_torch.calibrate.profile import load_profile
             from repro_torch.fabric.systems import from_profile
-            system = from_profile(calibration_profile, preset=cfg.system)
+            system = from_profile(load_profile(calibration_profile),
+                                  preset=cfg.system)
         else:
             from repro_torch.fabric.systems import get_system
             system = get_system(cfg.system)

@@ -432,11 +432,16 @@ def test_recorder_dump_matches_reference(monkeypatch, tmp_path):
 
 
 def test_recalibrate_and_calibration_profile_raise():
+    """The refusals: recalibrating needs a sentinel and a profile (the
+    reference's own message, tests/test_recal.py), and a profile fitted on
+    another preset has no route on this one. The calibrated serves
+    themselves are held against the reference in
+    tests/test_torch_calibrate.py."""
+    import importlib
     from repro_torch.obs import DriftSentinel
     from repro_torch.fabric.systems import get_system
     from repro_torch.runtime.degrade import run_degraded_serve
     sched = _scenario(_sides()[1], "headline")
-    # the reference's own message (tests/test_recal.py)
     with pytest.raises(ValueError, match="recalibrate=True needs"):
         run_degraded_serve(sched, react=True, recalibrate=True,
                            device="cpu")
@@ -444,12 +449,20 @@ def test_recalibrate_and_calibration_profile_raise():
     with pytest.raises(ValueError, match="recalibrate=True needs"):
         run_degraded_serve(sched, recalibrate=True, sentinel=sent,
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="calibration slice"):
-        run_degraded_serve(sched, recalibrate=True, sentinel=sent,
-                           calibration_profile=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="calibration slice"):
-        run_degraded_serve(sched, calibration_profile=object(),
-                           device="cpu")
+
+    def wrong_preset(s, recalibrate):
+        pkg = s["deg"].__name__.split(".")[0]
+        cal = importlib.import_module(f"{pkg}.calibrate")
+        kw = {"device": "cpu"} if pkg == "repro_torch" else {}
+        sent = s["obs"].DriftSentinel(s["sys"].get_system("tpu_v5e"))
+        s["deg"].run_degraded_serve(
+            _scenario(s, "headline"), recalibrate=recalibrate,
+            sentinel=sent, calibration_profile=cal.CalibrationRunner(
+                "cxl_pool").calibrate(), **kw)
+
+    for recalibrate in (False, True):
+        assert "has no route in preset 'tpu_v5e'" in raises_same(
+            lambda s: wrong_preset(s, recalibrate))[1]
 
 
 def test_degraded_serve_refuses_a_machine_without_cuda(monkeypatch):

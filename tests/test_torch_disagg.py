@@ -148,10 +148,23 @@ def test_disagg_serve_quiet_and_with_slo_match_reference(kv_dtype):
 
 
 def test_disagg_serve_calibration_profile_raises():
+    """A profile fitted on another preset has no route on the serve's, as
+    in the reference; calibrated serves are held against the reference in
+    tests/test_torch_calibrate.py."""
+    import repro.calibrate as rc
+    import repro_torch.calibrate as pc
+    from repro.serving.disagg import DisaggConfig as RC
+    from repro.serving.disagg import run_disagg_serve as ref_run
     from repro_torch.serving.disagg import DisaggConfig, run_disagg_serve
-    with pytest.raises(NotImplementedError, match="calibration slice"):
+    with pytest.raises(ValueError) as want:
+        ref_run(RC(requests=1), calibration_profile=rc.CalibrationRunner(
+            "tpu_v5e").calibrate())
+    with pytest.raises(ValueError) as got:
         run_disagg_serve(DisaggConfig(requests=1),
-                         calibration_profile=object(), device="cpu")
+                         calibration_profile=pc.CalibrationRunner(
+                             "tpu_v5e").calibrate(), device="cpu")
+    assert str(got.value) == str(want.value)
+    assert "has no route in preset 'cxl_pool'" in str(got.value)
 
 
 def test_disagg_serve_refuses_a_machine_without_cuda(monkeypatch):

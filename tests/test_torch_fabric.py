@@ -8,6 +8,7 @@ float for float.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -179,10 +180,24 @@ def test_simulate_paged_decode_matches_reference(system_name):
         assert got["prefetch_speedup"] >= 1.5
 
 
-def test_simulate_paged_decode_refuses_a_calibration_profile():
+def test_simulate_paged_decode_refuses_a_calibration_profile(tmp_path):
+    """A malformed profile artifact is refused at load time with the
+    reference's message; calibrated simulations are held against the
+    reference in tests/test_torch_calibrate.py."""
+    from repro.calibrate import ProfileError as RefError
+    from repro.launch.serve import simulate_paged_decode as ref_sim
+    from repro_torch.calibrate import ProfileError
     from repro_torch.launch.serve import simulate_paged_decode
-    with pytest.raises(NotImplementedError, match="calibration slice"):
-        simulate_paged_decode(calibration_profile="profile.json",
+    path = tmp_path / "profile.json"
+    path.write_text(json.dumps({"version": 1, "system": "tpu_v5e"}))
+    with pytest.raises(RefError) as want:
+        ref_sim(calibration_profile=str(path))
+    with pytest.raises(ProfileError) as got:
+        simulate_paged_decode(calibration_profile=str(path), device="cpu")
+    assert str(got.value) == str(want.value) == \
+        "links: missing required field"
+    with pytest.raises(FileNotFoundError):
+        simulate_paged_decode(calibration_profile=str(tmp_path / "none"),
                               device="cpu")
 
 

@@ -28,6 +28,12 @@ def test_port_imports_neither_jax_nor_repro():
                         or (m.split(".")[0] in ("jax", "ml_dtypes")
                             and sys.modules[m] is not None))
         assert not leaked, leaked
+        for name in ("calibrate.fit", "calibrate.profile", "calibrate.recal",
+                     "calibrate.runner", "calibrate.validate",
+                     "heimdall.micro", "heimdall.apps",
+                     "heimdall.calibration", "heimdall.obs",
+                     "kernels.probes.ops", "kernels.probes.ref"):
+            assert "repro_torch." + name in names, name
         print(len(names))
     """)
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True,
@@ -105,3 +111,21 @@ def test_train_cli_runs_on_the_cpu_when_asked(tmp_path, capsys):
           "--device", "cpu", "--ckpt-dir", str(tmp_path)])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["final_loss"] > 0
+
+
+def test_measurement_entry_points_refuse_a_machine_without_cuda(monkeypatch):
+    from repro_torch.calibrate import CalibrationRunner
+    from repro_torch.heimdall import apps, calibration, micro, obs
+    from repro_torch.kernels.probes import pointer_chase
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: micro.micro_latency(),
+                 lambda: apps.app_kv_workload(),
+                 lambda: calibration.calibration_torch_probe(),
+                 lambda: obs.obs_attribution(),
+                 lambda: CalibrationRunner(source="torch").calibrate()):
+        with pytest.raises(RuntimeError,
+                           match="no CUDA device is available"):
+            call()
+    # a probe asked to run on a card that is not there never falls back
+    with pytest.raises((RuntimeError, AssertionError)):
+        pointer_chase(torch.arange(4, dtype=torch.int32), 2, device="cuda")

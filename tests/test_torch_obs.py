@@ -662,17 +662,30 @@ def test_drift_sentinel_matches_reference():
 
 def test_drift_sentinel_from_a_profile_raises_until_calibration():
     """A CalibrationProfile expectation goes through the port's
-    from_profile, which has no fitted link constants to build from."""
+    from_profile: a profile fitted on another preset is refused with the
+    reference's message, and one fitted on this preset predicts what the
+    reference's sentinel predicts."""
+    import repro.calibrate as rc
+    import repro_torch.calibrate as pc
+    from repro.obs import DriftSentinel as RefSentinel
+    from repro.transport import Route as RefRoute
     from repro_torch.obs import DriftSentinel
-
-    class Profile:
-        links = ()
-        system = "tpu_v5e"
-
-        def estimate(self, src, dst):
-            return None
-    with pytest.raises(NotImplementedError, match="calibration slice"):
-        DriftSentinel(Profile())
+    from repro_torch.transport import Route
+    msgs = []
+    for cal, sentinel in ((rc, RefSentinel), (pc, DriftSentinel)):
+        with pytest.raises(ValueError) as e:
+            sentinel(cal.CalibrationRunner("cxl_pool").calibrate(),
+                     preset="tpu_v5e")
+        msgs.append(str(e.value))
+    assert msgs[1] == msgs[0]
+    preds = []
+    for cal, sentinel, route in ((rc, RefSentinel, RefRoute),
+                                 (pc, DriftSentinel, Route)):
+        sent = sentinel(cal.CalibrationRunner("tpu_v5e").calibrate())
+        r = route.resolve(sent.expected, "host_dram", "chip0")
+        preds.append((sent.expected.provenance,
+                      sent.predict(r, 8 << 20)))
+    assert preds[1] == preds[0] and preds[1][0] == "calibrated"
 
 
 def test_obs_exports_match_reference():
