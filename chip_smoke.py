@@ -7,6 +7,8 @@
     python3 chip_smoke.py --only serve,serve_offload  # HBM, then offloaded
     python3 chip_smoke.py --only degrade,disagg # the pager's consumers
     python3 chip_smoke.py --only heimdall       # probes, micro, apps, fit
+    python3 chip_smoke.py --only models         # the decoder-only zoo
+    python3 chip_smoke.py --only kernel         # K1's holds and timing
 
 Phases, one JSON line each, in this order (the train phases come first,
 while the host has the most memory to pin):
@@ -43,8 +45,8 @@ while the host has the most memory to pin):
                  3, then a second train() resumed from it; the resumed losses
                  must match the uninterrupted run's within 1e-5 relative
   kernel         K1 (flash attention) held against its plain PyTorch version
-                 at the kernel sweep shapes and the yi-9b prefill shape,
-                 fp32 and bf16; at the yi-9b shape in bf16 its time beside
+                 at the kernel sweep shapes and the yi-9b and mixtral-8x22b
+                 prefill shapes, fp32 and bf16; at the yi-9b shape in bf16 its time beside
                  the plain version's, one scaled_dot_product_attention call
                  (a yardstick only; the port never calls it) and the least
                  time the card could take
@@ -146,7 +148,35 @@ while the host has the most memory to pin):
                  on the card: a simulator output, labelled so
   kv_quant       the kv_quant family's kernel rows (K2 and K3 wall time at
                  the family's small shape) run on the card
-  kernels       every ported kernel (K1-K7, then the probes P1-P4) with its
+  models         the decoder-only model zoo through ServeEngine, each with
+                 seeded bf16 weights drawn on the card, 4 requests: gemma3-27b
+                 uncut (62 layers, 56.84 GB; prompts of 2048 tokens, twice
+                 its local layers' 1024-token window, and 32 new tokens),
+                 exactly 62 K1 launches a prefill, 52 of them windowed (both
+                 counted where K1 launches), and K1 device time > 0 in a
+                 profiled prefill, the kernel path's prefill logits within
+                 relative L2 3e-2 of the eager path's, and each of 32 decode steps (the ring caches have
+                 wrapped) within 3e-2 of an eager full forward over the
+                 prompt and the tokens fed so far; mixtral-8x22b at full
+                 width with 8 of its 56 layers (1024-token prompts, 8 K1
+                 launches, all windowed, the prefill's dropped (token, slot)
+                 pairs printed); zamba2-7b and xlstm-350m uncut (1024-token
+                 prompts, no K1, as in the reference; 8 decode steps each
+                 at most DECODE_GAP_RATIO times as far from an eager fp32
+                 forward as the eager bf16 forward is, and xlstm's also
+                 within 3e-2 of the bf16 forward). Each prints prefill and
+                 decode times, tokens/s, device time and idle share, peak memory,
+                 and the bf16 noise floor of the comparison (the eager
+                 forward of each request alone against the batch). Before
+                 gemma3 the card must hold under 1 GB; each engine is freed
+                 before the next. Then K1 at gemma3's local (window 1024)
+                 and global shapes against its plain version, its time
+                 beside the plain version's, the fastest SDPA form that
+                 computes the same attention (the window as a mask: cuDNN,
+                 memory-efficient with GQA or on expanded K/V, math; each
+                 tried, held and timed) and the bound of the unmasked work
+  kernels       every ported kernel (K1-K7, K1 again at gemma3-27b's two
+                 shapes, then the probes P1-P4) with its
                  launches on the main paths, its error against its plain
                  version and its times: CUDA events over 20 back-to-back
                  calls (ms, plain_ms, library_ms) and the device time of
@@ -201,12 +231,18 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 BF16_REL_L2 = 1e-2
 # (B, Hq, Hkv, S, d, causal, window): tests/test_kernels.py's sweep, a
 # ragged edge, 8 q heads per KV head at a ragged S with a window that
-# straddles the 128-key tiles, and the yi-9b prefill shape of the serve phase
+# straddles the 128-key tiles, zamba2's head dim (112) and one between the
+# kernel's instantiations (80, bidirectional and windowed), and the yi-9b
+# prefill shape of the serve phase
 SWEEP = [(1, 2, 2, 128, 64, True, 0), (2, 4, 2, 128, 64, True, 0),
          (2, 8, 1, 128, 32, True, 0), (1, 2, 2, 128, 64, False, 0),
          (1, 2, 2, 256, 64, True, 64), (1, 2, 2, 128, 128, True, 0),
-         (1, 4, 2, 100, 16, True, 0), (2, 16, 2, 300, 128, True, 200)]
+         (1, 4, 2, 100, 16, True, 0), (2, 16, 2, 300, 128, True, 200),
+         (1, 8, 2, 200, 112, True, 0), (2, 8, 8, 256, 80, False, 64)]
 YI_PREFILL = (4, 32, 4, 1024, 128, True, 0)
+# the models phase's mixtral-8x22b prefill: 48 / 8 heads of 128, 1024
+# tokens under its 4096-token window
+MIXTRAL_PREFILL = (4, 48, 8, 1024, 128, True, 4096)
 N_REQUESTS, PROMPT, GEN = 4, 1024, 32
 # (B, Hq, Hkv, d, page, pps): tests/test_kernels.py's paged sweep and
 # tests/test_kv_quant.py's wide GQA case
@@ -264,6 +300,38 @@ YI_LEAVES = 12               # parameter leaves of a dense yi-9b tree
 # 4096 x 11008 FLOP)
 OFFLOAD_PROFILED_STEPS = 2
 OVERLAP_ROWS = 16384
+# The models phase: (arch, layers kept (None: all of them), prompt tokens,
+# new tokens, decode steps held within LOGITS_REL_L2 of an eager bf16 full
+# forward, decode steps held to DECODE_GAP_RATIO against an eager forward in
+# fp32 activations, K1 launches a prefill (all, windowed)). All in bf16
+# activations. gemma3's prompts are twice its 1024-token window, so
+# the window mask bites in K1 and the ring caches have wrapped when decode
+# starts; mixtral keeps 8 of its 56 layers (full width, 40.87 GB); zamba2
+# and xlstm run no K1, as in the reference. Mixtral's decode is not held
+# against a full forward: at the forward's 4 x 1040 tokens an expert drops
+# (token, slot) pairs for want of capacity that a 4-token decode step
+# keeps (the reference's capacity rule, by design). zamba2's decode is
+# held to the fp32 forward only: its bf16 forward differs from itself by
+# 2.8e-2 (relative L2) when each request runs alone instead of in the batch
+# (81 random layers amplify the GEMMs' other summation order), so against
+# the bf16 forward a 3e-2 bound cannot tell a fault from rounding.
+MODELS = [("gemma3-27b", None, 2048, 32, 32, 0, (62, 52)),
+          ("mixtral-8x22b", 8, 1024, 16, 0, 0, (8, 8)),
+          ("zamba2-7b", None, 1024, 16, 0, 8, (0, 0)),
+          ("xlstm-350m", None, 1024, 16, 8, 8, (0, 0))]
+# A bf16 decode step's gap to the forward in fp32 activations (the same
+# weights and tokens) may be at most this many times the bf16 forward's own
+# gap to it. Read on the card at full width: 0.98-1.05 for zamba2 (gaps of
+# 5.4-6.1e-2), 0.96-1.03 for xlstm; on the CPU at full depth and reduced
+# width the reference's own decode reads 0.89-1.04 and the port's 1.00
+# (tests/test_torch_decode_parity.py holds both sides to this limit). A
+# fault on the bf16 decode path alone gives many times it (a mutation that
+# drops the Mamba2 skip term in bf16 read 9-22 there); a rounding of one
+# step's state or step size to bf16 stays at 1.
+DECODE_GAP_RATIO = 1.25
+# device memory allowed in use before gemma3's 56.84 GB are drawn
+MODELS_START_BYTES = 1e9
+
 
 
 def emit(obj: dict) -> None:
@@ -548,7 +616,7 @@ def phase_kernel() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
     for dtype in ("float32", "bfloat16"):
-        for shape in (*SWEEP, YI_PREFILL):
+        for shape in (*SWEEP, YI_PREFILL, MIXTRAL_PREFILL):
             causal, window = shape[5], shape[6]
             q, k, v = _qkv(shape, dtype, gen)
             out = flash_attention(q, k, v, causal=causal, window=window)
@@ -2406,6 +2474,358 @@ def phase_heimdall(fetch_gb_per_s=None) -> dict:
     return out
 
 
+def _left_padded(reqs, device):
+    """The requests' prompts left-padded with token 0 into one batch, as
+    ServeEngine.prefill builds it."""
+    import numpy as np
+    import torch
+    plen = max(len(r.prompt) for r in reqs)
+    toks = np.zeros((len(reqs), plen), np.int64)
+    for i, r in enumerate(reqs):
+        toks[i, plen - len(r.prompt):] = r.prompt
+    return torch.from_numpy(toks).to(device)
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _leaf_draw(params) -> dict:
+    """The largest leaf's first and last 2**20 elements against the scale
+    it was drawn at: a draw of several G elements that went wrong past some
+    index (zeros, a repeat of the start) shows here."""
+    import numpy as np
+    import torch
+    from repro_torch.models.params import tree_flatten
+    path, leaf = max(tree_flatten(params), key=lambda pl: pl[1].numel())
+    n = min(2 ** 20, leaf.numel() // 2)
+    flat = leaf.view(-1)
+    first, last = flat[:n].float(), flat[-n:].float()
+    want = 1.0 / np.sqrt(int(np.prod(leaf.shape[:-1])))   # ParamSpec's scale
+    out = {"leaf": "/".join(path), "shape": list(leaf.shape),
+           "elements": leaf.numel(), "scale": want,
+           "std_first": first.std().item(), "std_last": last.std().item(),
+           "equal": bool(torch.equal(first, last))}
+    out["ok"] = (not out["equal"] and all(
+        abs(out[k] / want - 1) < 0.05 for k in ("std_first", "std_last")))
+    return out
+
+
+def decode_vs_forward(cfg, params, batch, steps: int, fp32_steps: int) -> dict:
+    """On ``params``, in bf16 activations: the prefill of ``batch`` through
+    the kernel path (K1 where the model reaches it) against the eager
+    path's, then ``steps`` greedy decode steps, each against an eager full
+    forward over the prompt and every token fed so far; the first
+    ``fp32_steps`` of them also against the same forward in fp32
+    activations, beside the bf16 forward's own gap to it; then the bf16
+    forward's noise floor (each request alone against the batch: other GEMM
+    shapes, so other sums). Relative L2s of the last position's logits."""
+    import torch
+    from repro_torch.config.base import ParallelConfig
+    from repro_torch.models.layers import unembed
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import forward_hidden
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    kern = Model.create(cfg, ParallelConfig(attention_kernel="kernel"))
+    eager = {}
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        eager[dtype] = c, Model.create(
+            c, ParallelConfig(attention_kernel="eager")).mctx
+    plen = batch.shape[1]
+
+    def eager_last(tokens, dtype="bfloat16"):
+        c, mctx = eager[dtype]
+        x, _, _ = forward_hidden(params, c, mctx, {"tokens": tokens})
+        return unembed(params["embed"], x[:, -1:], c.tie_embeddings)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        kern.mctx.stats = {}
+        logits_k, cache = kern.prefill(params, {"tokens": batch},
+                                       plen + steps)
+        dropped = int(kern.mctx.stats.get("moe_dropped", 0))
+        logits_e = eager_last(batch)
+        finite = bool(torch.isfinite(logits_k).all()
+                      and torch.isfinite(logits_e).all())
+        decode_rel, gap_decode, gap_forward = [], [], []
+        seq, tok = batch, logits_k.argmax(-1)
+        for s in range(steps):
+            logits_d, cache = kern.decode(params, cache, tok, plen + s)
+            seq = torch.cat([seq, tok], 1)
+            forward = eager_last(seq)
+            finite &= bool(torch.isfinite(logits_d).all())
+            decode_rel.append(_rel_l2(logits_d, forward))
+            if s < fp32_steps:
+                exact = eager_last(seq, "float32")
+                gap_decode.append(_rel_l2(logits_d, exact))
+                gap_forward.append(_rel_l2(forward, exact))
+            tok = logits_d.argmax(-1)
+        del cache
+        alone = torch.cat([eager_last(seq[i:i + 1])
+                           for i in range(seq.shape[0])])
+        floor = _rel_l2(alone, eager_last(seq))
+    gap_ratio = [d / f for d, f in zip(gap_decode, gap_forward)]
+    return {"prefill_rel_l2_kernel_vs_eager": _rel_l2(logits_k, logits_e),
+            "moe_dropped_in_prefill": dropped, "decode_steps": steps,
+            "decode_rel_l2": decode_rel,
+            "decode_rel_l2_max": max(decode_rel, default=None),
+            "decode_gap_to_fp32": gap_decode,
+            "forward_gap_to_fp32": gap_forward, "gap_ratio": gap_ratio,
+            "gap_ratio_max": max(gap_ratio, default=None),
+            "forward_rel_l2_alone_vs_batch": floor, "finite": finite,
+            "seconds": time.perf_counter() - t0}
+
+
+def serve_model(arch: str, layers, prompt: int, gen: int, held: int,
+                fp32_steps: int, k1: tuple) -> dict:
+    """One architecture of the zoo through ServeEngine on the card (K1 on
+    the prefill path), then its checks; frees the engine before it
+    returns."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.config.base import get_config
+    from repro_torch.launch.serve import Request, ServeEngine, make_requests
+    from repro_torch.models.transformer import segment_plan
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg)                       # cuda, attention kernel
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = engine.model.params
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in engine.model.parameters()) / 1e9
+    draw = _leaf_draw(params)
+    reqs = make_requests(cfg, N_REQUESTS, prompt, gen)
+    engine.serve([Request(99, reqs[0].prompt[:64], 2)])     # warm-up
+
+    kernels.reset_launches()
+    results = engine.serve(reqs)
+    launches = dict(kernels.LAUNCHES)
+    counted = (launches["flash_attention"],
+               launches["flash_attention_windowed"])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    toks = np.array([r.tokens for r in results])
+    tokens_ok = (toks.shape == (N_REQUESTS, gen) and toks.min() >= 0
+                 and toks.max() < cfg.vocab_size)
+
+    # the kernel path's prefill against the eager path's, and decode
+    # against the eager forward, on the engine's weights
+    batch = _left_padded(reqs, engine.device)
+    plen = batch.shape[1]
+    check = decode_vs_forward(cfg, params, batch, max(held, fp32_steps),
+                              fp32_steps)
+    prefill_rel = check["prefill_rel_l2_kernel_vs_eager"]
+    decode_rel = check["decode_rel_l2"][:held]
+
+    # where the time goes: one profiled prefill and 4 decode steps
+    n_prof = 4
+    handoff, pre_dev, pre_kernels = profile_device(
+        lambda: engine.prefill(reqs), attempts=3)
+    _, dec_dev, _ = profile_device(lambda: engine.decode(
+        dataclasses.replace(handoff, max_new=n_prof)), attempts=3)
+    del handoff
+    dec_dev = ratio(dec_dev, n_prof)
+    r0 = results[0]
+    plan = segment_plan(cfg)
+    out = {"arch": arch, "layers": cfg.num_layers,
+           "layers_of": get_config(arch).num_layers,
+           "segments": [dataclasses.asdict(s) for s in plan],
+           "slstm_layers": sum(s.n for s in plan if s.kind == "xlstm"),
+           "weight_gb": weight_gb, "init_s": init_s, "draw": draw,
+           "requests": N_REQUESTS, "prompt_len": plen, "gen": gen,
+           "prefill_ms": r0.prefill_ms,
+           "decode_ms_per_tok": r0.decode_ms_per_tok,
+           "tokens_per_s": N_REQUESTS * 1e3 / r0.decode_ms_per_tok,
+           "prefill_device_ms": pre_dev,
+           "prefill_flash_ms": device_ms(pre_kernels, K1_KERNEL),
+           "prefill_idle_share": less(1, ratio(pre_dev, r0.prefill_ms)),
+           "decode_device_ms_per_step": dec_dev,
+           "decode_idle_share": less(1, ratio(dec_dev, r0.decode_ms_per_tok)),
+           "peak_allocated_gb": peak_gb, "launches": launches,
+           "launches_per_prefill": counted[0],
+           "windowed_launches_per_prefill": counted[1],
+           "launches_expected": list(k1),
+           "logits_rel_l2_kernel_vs_eager": prefill_rel,
+           "decode_held": held, "decode_rel_l2_max": max(decode_rel,
+                                                         default=None),
+           "decode_gap_ratio_bound": DECODE_GAP_RATIO,
+           "check": check, "logits_rel_l2_bound": LOGITS_REL_L2,
+           "tokens_ok": bool(tokens_ok), "sample": r0.tokens[:8]}
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    bad = []
+    if not draw["ok"]:
+        bad.append(f"the largest leaf's draw looks wrong: {draw}")
+    if counted != k1:
+        bad.append(f"flash_attention launched {counted[0]} times in one "
+                   f"prefill, {counted[1]} of them windowed; expected {k1}")
+    if k1[0] and not out["prefill_flash_ms"]:
+        bad.append(f"no device time under {K1_KERNEL!r} in the profiled "
+                   f"prefill: {sorted(pre_kernels)}")
+    if not tokens_ok:
+        bad.append(f"generated tokens out of range: {toks}")
+    if not check["finite"]:
+        bad.append("non-finite logits")
+    if prefill_rel > LOGITS_REL_L2:
+        bad.append(f"kernel-path prefill logits differ from the eager "
+                   f"path's: relative L2 {prefill_rel} > {LOGITS_REL_L2}")
+    if decode_rel and max(decode_rel) > LOGITS_REL_L2:
+        bad.append(f"decode logits differ from the eager forward's: "
+                   f"relative L2 {decode_rel} > {LOGITS_REL_L2}")
+    if any(r > DECODE_GAP_RATIO for r in check["gap_ratio"]):
+        bad.append(f"decode logits' gap to the fp32 forward "
+                   f"{check['decode_gap_to_fp32']} exceeds "
+                   f"{DECODE_GAP_RATIO} x the bf16 forward's "
+                   f"{check['forward_gap_to_fp32']}")
+    out["failures"] = bad
+    return out
+
+
+# gemma3-27b's two K1 shapes on its prefill path: (B, Hq, Hkv, S, d,
+# causal, window), the local layers' window and the global layers'
+GEMMA_K1 = {"local": (4, 32, 16, 2048, 128, True, 1024),
+            "global": (4, 32, 16, 2048, 128, True, 0)}
+
+
+def windowed_sdpa(q, k, v, window: int) -> dict:
+    """The ways one PyTorch call computes K1's windowed attention: SDPA
+    with the window as a boolean mask on the cuDNN, memory-efficient and
+    math backends with GQA heads, and the efficient backend on K/V heads
+    expanded inside the call. Name -> the call, for those that run."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    S, rep = q.shape[2], q.shape[1] // k.shape[1]
+    pos = torch.arange(S, device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) & \
+        (pos[None, :] > pos[:, None] - window)
+
+    def sdpa(backend, expand):
+        def call():
+            kk, vv = k, v
+            if expand:
+                kk, vv = (k.repeat_interleave(rep, 1),
+                          v.repeat_interleave(rep, 1))
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(
+                    q, kk, vv, attn_mask=mask, enable_gqa=not expand)
+        return call
+    calls = {"CUDNN_ATTENTION": sdpa(SDPBackend.CUDNN_ATTENTION, False),
+             "EFFICIENT_ATTENTION": sdpa(SDPBackend.EFFICIENT_ATTENTION,
+                                         False),
+             "EFFICIENT_ATTENTION on expanded K/V":
+                 sdpa(SDPBackend.EFFICIENT_ATTENTION, True),
+             "MATH": sdpa(SDPBackend.MATH, False)}
+    runs = {}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            print(f"chip_smoke: SDPA {name} refuses the windowed call: "
+                  f"{str(e).splitlines()[0][:200]}", file=sys.stderr)
+            continue
+        runs[name] = call
+    return runs
+
+
+def gemma_k1_rows(launches: dict) -> dict:
+    """K1 at gemma3-27b's local and global shapes: against its plain
+    version, its time (events and device), the plain version's, and the
+    bound of the unmasked work; beside it the fastest PyTorch call that
+    computes the same attention (the local window: each SDPA form that
+    runs, held against the plain version and timed; global: SDPA
+    ``is_causal``). ``launches``: the counted gemma3 prefill's K1 launches
+    by shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = {}
+    for name, shape in GEMMA_K1.items():
+        causal, window = shape[5], shape[6]
+        q, k, v = _qkv(shape, "bfloat16", gen)
+
+        def kern():
+            return flash_attention(q, k, v, causal=causal, window=window)
+
+        def plain():
+            return flash_attention_ref(q, k, v, causal=causal,
+                                       window=window)
+        out, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        rel = _rel_l2(out, ref)
+        if window:
+            libs = windowed_sdpa(q, k, v, window)
+        else:
+            libs = {"default (is_causal)":
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True)}
+        tried = {n: {"rel_l2": _rel_l2(call(), ref), "ms": cuda_ms(call)}
+                 for n, call in libs.items()}
+        same = {n: t for n, t in tried.items() if t["rel_l2"] <= BF16_REL_L2}
+        best = min(same, key=lambda n: same[n]["ms"], default=None)
+        bnd = attention_bound(shape, "bfloat16")
+        t = {"kernel_ms": cuda_ms(kern),
+             "kernel_device": device_ms_per_call(kern),
+             "plain_ms": cuda_ms(plain, iters=5, warmup=1),
+             "library_ms": same[best]["ms"] if best else None,
+             "library_device": device_ms_per_call(
+                 libs[best], kernels_per_call=None) if best else None}
+        rows[name] = {**t, "shape": list(shape), "max_abs_err": err,
+                      "rel_l2": rel, "ok": rel <= BF16_REL_L2,
+                      "launches": launches[name],
+                      "library_backend": best, "library_tried": tried,
+                      "bound_us": bnd["bound_ms"] * 1e3,
+                      "bound_by": bnd["bound_by"], "flops": bnd["flops"],
+                      "bytes": bnd["bytes"]}
+    return rows
+
+
+def phase_models() -> dict:
+    """The decoder-only model zoo on the card: gemma3-27b uncut (K1's
+    windowed and global paths), mixtral-8x22b at full width on 8 layers
+    (MoE), zamba2-7b (Mamba2 + the shared attention block) and xlstm-350m
+    uncut; then K1 at gemma3's two shapes."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated()
+    if start > MODELS_START_BYTES:
+        raise AssertionError(f"{start / 1e9:.2f} GB still allocated on the "
+                             f"card before gemma3-27b's weights are drawn")
+    runs = [serve_model(*m) for m in MODELS]
+    gemma = runs[0]
+    k1 = gemma_k1_rows({
+        "local": gemma["windowed_launches_per_prefill"],
+        "global": gemma["launches_per_prefill"]
+        - gemma["windowed_launches_per_prefill"]})
+    out = {"phase": "models", "start_allocated_gb": start / 1e9,
+           "runs": runs, "gemma_k1": k1}
+    emit(out)
+    bad = [f"{r['arch']}: {f}" for r in runs for f in r["failures"]]
+    bad += [f"K1 at gemma3's {n} shape disagrees with its plain version: "
+            f"{r['rel_l2']}" for n, r in k1.items() if not r["ok"]]
+    bad += [f"no SDPA form computes gemma3's {n} attention: "
+            f"{r['library_tried']}" for n, r in k1.items()
+            if r["library_backend"] is None]
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return out
+
+
 PAGED_SOURCES = {
     "paged_attention": ("src/repro_torch/kernels/paged_attention/csrc/"
                         "paged_attention.cu",
@@ -2435,26 +2855,42 @@ def _device_cols(t: dict) -> dict:
 
 def kernels_line(kern: dict, serve: dict, offload: dict, paged: dict,
                  pager: dict, flat: dict, compressed: dict,
-                 heimdall: dict) -> dict:
+                 heimdall: dict, models: dict) -> dict:
     """Every ported kernel: launches on its main paths (K1: the HBM and the
-    offloaded engines' counted runs; P1-P4: the micro family's), agreement
-    with its plain version, its times at the main path's shape, and its
-    share of its bound (bound over device time, or over event time where
-    the profiler recorded none)."""
+    offloaded engines' counted runs and the models phase's; P1-P4: the
+    micro family's), agreement with its plain version, its times at the
+    main path's shape, and its share of its bound (bound over device time,
+    or over event time where the profiler recorded none). K1 has a row at
+    yi-9b's prefill shape and one at each of gemma3-27b's (the local
+    layers' window and the global layers), whose launches are the models
+    phase's counted gemma3 prefill's windowed and other K1 launches."""
     yi = kern["yi_prefill_bf16"]
+    k1_source = ("src/repro_torch/kernels/flash_attention/csrc/"
+                 "flash_attention.cu")
+    k1_replaces = "src/repro/kernels/flash_attention/kernel.py:26"
     rows = [{
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:26",
+        "source": k1_source, "replaces": k1_replaces,
         "launches": serve["launches"]["flash_attention"]
-        + offload["launches"]["flash_attention"],
+        + offload["launches"]["flash_attention"]
+        + sum(r["launches"]["flash_attention"] for r in models["runs"]),
         "matched": all(c["ok"] for c in kern["cases"]),
         "max_abs_err": yi["max_abs_err"],
         "ms": yi["kernel_ms"], **_device_cols(yi),
         "plain_ms": yi["plain_ms"],
         "bound_ms": yi["bound_us"] / 1e3, "bound_by": yi["bound_by"],
         "library_ms": yi["library_ms"]}]
+    for shape, t in models["gemma_k1"].items():
+        rows.append({
+            "name": f"flash_attention/gemma3_{shape}", "route": "cuda",
+            "source": k1_source, "replaces": k1_replaces,
+            "launches": t["launches"], "matched": t["ok"],
+            "max_abs_err": t["max_abs_err"], "shape": t["shape"],
+            "ms": t["kernel_ms"], **_device_cols(t),
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library_backend": t["library_backend"]})
     matched = {
         "paged_attention": all(c["ok"] for c in paged["attention_cases"]
                                if c["kernel"] == "paged_attention"),
@@ -2544,8 +2980,9 @@ def phase_all() -> None:
     heimdall = phase_heimdall(offload["fetch_gb_per_s"])
     phase_paged_sim()
     phase_kv_quant()
+    models = phase_models()
     emit(kernels_line(kern, serve, offload, paged, pager, flat, compressed,
-                      heimdall))
+                      heimdall, models))
 
 
 @contextlib.contextmanager
@@ -2568,7 +3005,8 @@ def expandable_segments():
 ONLY = {"serve": phase_serve, "serve_offload": phase_serve_offload,
         "pager": phase_pager, "paged_kernels": phase_paged_kernels,
         "degrade": phase_degrade, "disagg": phase_disagg,
-        "heimdall": phase_heimdall}
+        "heimdall": phase_heimdall, "models": phase_models,
+        "kernel": phase_kernel}
 
 
 def main(argv=None) -> int:

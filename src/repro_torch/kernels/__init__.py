@@ -14,7 +14,9 @@ module is imported; ``build_all`` builds every stale family at once, one
 
 Launch counts: ``LAUNCHES[name]`` is a plain integer that a wrapper raises
 by one each time it launches its kernel, and nowhere else, so a run can
-show that its main path went through the kernel.
+show that its main path went through the kernel. K1's wrapper also counts
+its launches with a window, at the same call site
+(``flash_attention_windowed``).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ FAMILIES = {"flash_attention": ("flash_attention",),
             "probes": ("pointer_chase", "tier_sum", "tier_scatter_add",
                        "tier_copy")}
 LAUNCHES: dict[str, int] = {k: 0 for ks in FAMILIES.values() for k in ks}
+LAUNCHES["flash_attention_windowed"] = 0    # of K1's, those with window > 0
 
 # name -> {"seconds": build wall time, "log": nvcc's output (ptxas usage)}
 BUILD_INFO: dict[str, dict] = {}

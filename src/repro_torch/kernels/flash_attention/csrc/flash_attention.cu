@@ -34,8 +34,10 @@
 //   Tiles: 64-column blocks of 128-byte rows with the 128-byte swizzle
 //   (16-byte chunk c of row r at c ^ (r % 8)), written so by TMA and named
 //   so by the wgmma descriptors. Shared memory at d = 128: q 32 KB + 2 x (K
-//   32 KB + V 32 KB) + the output tile 32 KB = 192 KB. Head dims 16 and 32
-//   run the d = 64 instantiation; TMA fills the columns past d with zeros.
+//   32 KB + V 32 KB) + the output tile 32 KB = 192 KB. A head dim below 64
+//   runs the d = 64 instantiation and one between 64 and 128 the d = 128
+//   one (any multiple of 8: zamba2's 112, say); TMA fills the columns past
+//   d with zeros and the store leaves them out.
 //   Products: S = q k^T by wgmma m64n128k16 with both operands in shared
 //   memory (K-major); P v by wgmma m64n{d}k16 with P in registers (bf16)
 //   and V read as an MN-major (transposed) B. Tile j issues S(j) and P(j-1)
@@ -143,10 +145,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_fp32_kernel(
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + hk * p.v_sh;
   float* o = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
 
+  // columns past p.d (a head dim the instantiation D rounds up) are zero
   for (int i = tid; i < BLOCK_M * D; i += THREADS) {
     const int r = i / D, c = i % D;
     const int qr = q0 + r;
-    q_s[r * QS + c] = qr < p.Sq ? q[qr * p.q_ss + c] : 0.f;
+    q_s[r * QS + c] = qr < p.Sq && c < p.d ? q[qr * p.q_ss + c] : 0.f;
   }
 
   float m[RM], l[RM], acc[RM][CD];
@@ -170,7 +173,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_fp32_kernel(
     for (int i = tid; i < BLOCK_N * D; i += THREADS) {
       const int r = i / D, c = i % D;
       const int kr = k0 + r;
-      const bool in = kr < p.Skv;
+      const bool in = kr < p.Skv && c < p.d;
       k_s[r * QS + c] = in ? k[kr * p.k_ss + c] : 0.f;
       v_s[r * D + c] = in ? v[kr * p.v_ss + c] : 0.f;
     }
@@ -247,7 +250,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_fp32_kernel(
     const float li = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
     for (int c = 0; c < CD; ++c)
-      o[qr * p.o_ss + tx + 16 * c] = acc[i][c] / li;
+      if (tx + 16 * c < p.d) o[qr * p.o_ss + tx + 16 * c] = acc[i][c] / li;
   }
 }
 
@@ -1017,21 +1020,21 @@ extern "C" int repro_flash_attention_fwd(
   p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
+  // Any head dim up to 128 that is a multiple of 8 runs the instantiation
+  // that rounds it up: the extra columns are loaded as zeros (TMA fills
+  // what lies past the tensor map's d; the element copies test c < d), add
+  // nothing to q k^T, and are not stored (a multiple of 8 keeps the 16-byte
+  // stores of a row whole, and a bf16 row a 16-byte multiple for TMA).
+  if (D <= 0 || D > 128 || D % 8 != 0) return cudaErrorInvalidValue;
   if (dtype == 0) {
-    switch (D) {
-      case 16: err = launch_fp32<16>(p, s); break;
-      case 32: err = launch_fp32<32>(p, s); break;
-      case 64: err = launch_fp32<64>(p, s); break;
-      case 128: err = launch_fp32<128>(p, s); break;
-    }
+    if (D <= 16) err = launch_fp32<16>(p, s);
+    else if (D <= 32) err = launch_fp32<32>(p, s);
+    else if (D <= 64) err = launch_fp32<64>(p, s);
+    else err = launch_fp32<128>(p, s);
   } else if (dtype == 1) {
     const int vec = rows_16b_aligned(p) ? 1 : 0;
-    switch (D) {
-      case 16:
-      case 32:
-      case 64: err = launch_bf16<64>(p, vec, s); break;
-      case 128: err = launch_bf16<128>(p, vec, s); break;
-    }
+    if (D <= 64) err = launch_bf16<64>(p, vec, s);
+    else err = launch_bf16<128>(p, vec, s);
   }
   return static_cast<int>(err);
 }

@@ -19,7 +19,17 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 LIBRARY = "flash_attention"
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"]
-HEAD_DIMS = (16, 32, 64, 128)
+# The head dims the kernel takes: any multiple of 8 up to 128, in fp32 and
+# bf16. It runs the instantiation for 16, 32, 64 or 128 (fp32) or 64 or 128
+# (bf16) that rounds d up, with the extra columns zero; a multiple of 8
+# keeps a bf16 row a whole number of the 16-byte pieces its copies and
+# stores move. The reference's Pallas kernel takes any d; above 128 the
+# tiles of one item would not fit in shared memory.
+MAX_HEAD_DIM = 128
+
+
+def takes_head_dim(d: int) -> bool:
+    return 0 < d <= MAX_HEAD_DIM and d % 8 == 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1
 
@@ -55,8 +65,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)} (need equal B and d, "
                          f"Hq % Hkv == 0)")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if not takes_head_dim(d):
+        raise ValueError(f"head dim {d}: the kernel takes a multiple of 8 "
+                         f"up to {MAX_HEAD_DIM}")
     if Sq == 0 or Skv == 0:
         raise ValueError("empty sequence")
     if window < 0:
@@ -92,6 +103,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            *out.stride()[:3], float(scale), int(bool(causal)), int(window),
            device=q.device)
     count_launch("flash_attention")
+    if window:
+        count_launch("flash_attention_windowed")
     return out
 
 

@@ -1,4 +1,5 @@
-"""Attention: GQA (full / sliding-window), prefill and decode paths.
+"""Attention: GQA (full / sliding-window / local:global), MLA, prefill and
+decode paths.
 
 Prefill uses *chunked* attention — a loop over query blocks so the (S x S)
 score matrix is never materialized (O(q_chunk x S_kv) transient). Sliding
@@ -8,8 +9,10 @@ through the hand-written flash attention kernel (``repro_torch.kernels``).
 
 Decode uses single-token attention against a KV cache, which it updates in
 place. Scores, softmax and context are fp32 in every path, cast to the
-activation dtype at the end. MLA and cross-attention come with the slices
-that port deepseek-v3 and whisper.
+activation dtype at the end. MLA (deepseek-v3) prefills through chunked
+attention, as the reference does (its value head dim differs from its
+query head dim), and decodes in the absorbed latent form. Cross-attention
+comes with the slice that ports whisper.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, rmsnorm, rmsnorm_spec
 from repro_torch.models.params import ParamSpec
 
 NEG_INF = -1e30
@@ -151,10 +154,12 @@ def _project_qkv(p: dict, x: torch.Tensor):
 
 
 def attn_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
-                 cfg: ModelConfig, *, window: int = 0, q_chunk: int = 512,
-                 mctx=None) -> tuple[torch.Tensor, dict]:
-    """Causal full-sequence self-attention with rope (prefill). Returns
-    (out, kv) where kv holds the rope'd k/v for cache construction."""
+                 cfg: ModelConfig, *, causal: bool = True, window: int = 0,
+                 q_chunk: int = 512, mctx=None) -> tuple[torch.Tensor, dict]:
+    """Full-sequence self-attention with rope (prefill), causal unless
+    ``causal=False``. Returns (out, kv) where kv holds the rope'd k/v for
+    cache construction. Without ``mctx`` it takes chunked attention, as the
+    reference does."""
     q, k, v = _project_qkv(p, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
@@ -165,10 +170,10 @@ def attn_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
         # through (B, H, S, d) views and writes its output in q's layout,
         # so no transpose is copied. Semantics == chunked_attention.
         ctx = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=True,
+                              v.transpose(1, 2), causal=causal,
                               window=window).transpose(1, 2)
     else:
-        ctx = chunked_attention(q, k, v, causal=True, window=window,
+        ctx = chunked_attention(q, k, v, causal=causal, window=window,
                                 q_chunk=q_chunk)
     return _out_proj(ctx, p["w_o"]), {"k": k, "v": v}
 
@@ -197,3 +202,94 @@ def attn_decode(p: dict, x: torch.Tensor, pos: int, cache: dict,
         valid |= pos >= S                # ring: all valid once wrapped
     ctx = decode_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype), valid)
     return _out_proj(ctx, p["w_o"]), cache
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention)
+# --------------------------------------------------------------------------
+
+
+def mla_specs(cfg: ModelConfig) -> dict:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "w_dq": ParamSpec((d, m.q_lora_rank), ("embed", None)),
+        "q_norm": rmsnorm_spec(m.q_lora_rank),
+        "w_uq": ParamSpec((m.q_lora_rank, H, qk), (None, "heads", None)),
+        "w_dkv": ParamSpec((d, m.kv_lora_rank), ("embed", None)),
+        "kv_norm": rmsnorm_spec(m.kv_lora_rank),
+        "w_kr": ParamSpec((d, m.qk_rope_head_dim), ("embed", None)),
+        "w_uk": ParamSpec((m.kv_lora_rank, H, m.qk_nope_head_dim),
+                          (None, "heads", None)),
+        "w_uv": ParamSpec((m.kv_lora_rank, H, m.v_head_dim),
+                          (None, "heads", None)),
+        "w_o": ParamSpec((H, m.v_head_dim, d), ("heads", None, "embed")),
+    }
+
+
+def _mla_q(p: dict, x: torch.Tensor, positions: torch.Tensor,
+           cfg: ModelConfig):
+    m = cfg.mla
+    cq = rmsnorm(x @ p["w_dq"].to(x.dtype), p["q_norm"], cfg.norm_eps)
+    q = _proj_heads(cq, p["w_uq"])
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                        cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latents(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                 cfg: ModelConfig):
+    ckv = rmsnorm(x @ p["w_dkv"].to(x.dtype), p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope((x @ p["w_kr"].to(x.dtype))[:, :, None, :],
+                        positions, cfg.rope_theta)[:, :, 0, :]
+    return ckv, k_rope
+
+
+def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
+                cfg: ModelConfig, q_chunk: int = 512):
+    """Train/prefill MLA. Returns (out, latent_cache)."""
+    m = cfg.mla
+    q_nope, q_rope = _mla_q(p, x, positions, cfg)
+    ckv, k_rope = _mla_latents(p, x, positions, cfg)
+    k_nope = _proj_heads(ckv, p["w_uk"])
+    v = _proj_heads(ckv, p["w_uv"])
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        *k_nope.shape[:3], m.qk_rope_head_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    ctx = chunked_attention(q, k, v, causal=True, q_chunk=q_chunk,
+                            scale=scale)
+    return _out_proj(ctx, p["w_o"]), {"ckv": ckv, "k_rope": k_rope}
+
+
+def mla_decode(p: dict, x: torch.Tensor, pos: int, cache: dict,
+               cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """Absorbed-form MLA decode: scores and context computed in latent
+    space (per step O(S * (kv_lora + rope)) per head, the DeepSeek serving
+    formulation), in fp32. cache: {ckv: (B, S, r), k_rope: (B, S, rope)},
+    written at ``pos`` in place and returned."""
+    m = cfg.mla
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, positions, cfg)          # (B,1,H,*)
+    ckv_new, krope_new = _mla_latents(p, x, positions, cfg)
+    ckv, k_rope = cache["ckv"], cache["k_rope"]
+    ckv[:, pos] = ckv_new[:, 0].to(ckv.dtype)
+    k_rope[:, pos] = krope_new[:, 0].to(k_rope.dtype)
+    S = ckv.shape[1]
+    # absorb W_uk into q: (B,1,H,nope) x (r,H,nope) -> (B,1,H,r)
+    q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"].to(x.dtype))
+    scores = (torch.einsum("bshr,bkr->bhsk", q_abs.float(), ckv.float())
+              + torch.einsum("bshr,bkr->bhsk", q_rope.float(),
+                             k_rope.float()))
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    scores = scores * scale
+    valid = torch.arange(S, device=x.device) <= pos
+    scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
+    pr = torch.softmax(scores, dim=-1)
+    ctx_lat = torch.einsum("bhsk,bkr->bshr", pr, ckv.float())
+    out_h = torch.einsum("bshr,rhv->bshv", ctx_lat.to(x.dtype),
+                         p["w_uv"].to(x.dtype))
+    return _out_proj(out_h, p["w_o"]), cache

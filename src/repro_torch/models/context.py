@@ -6,7 +6,9 @@ On one card there is no mesh, so the reference's sharding constraints
 with the slice that ports the mesh. ``pod_group`` is the counterpart of a
 ``pod`` axis in the reference's mesh: the ``torch.distributed`` process
 group over which the training step averages compressed gradients, or
-None.
+None. ``stats``, where a caller sets it to a dict, collects counters a run
+asks for (``"moe_dropped"``: the (token, slot) pairs the MoE layers drop
+for want of capacity).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ class MCtx:
     device: torch.device = dataclasses.field(
         default_factory=lambda: torch.device("cpu"))
     pod_group: Optional[Any] = None     # a ProcessGroup, or None
+    stats: Optional[dict] = None        # counters a caller asks for
 
     @property
     def cache_seq_axis(self) -> Optional[str]:

@@ -1,31 +1,40 @@
 """Model assembly: per-arch segment plans, specs, forward, loss.
 
 Every architecture is a sequence of *segments* over stacked layer
-parameters (leading ``[L, ...]`` dim), as in the reference; where the
-reference scans over the stack, the port loops over the layer index. The
-port runs ``"attn"`` segments of dense decoders (yi-9b); the other segment
-kinds, MoE and MLA come with the slices that port those architectures.
+parameters, as in the reference: a leading ``[L, ...]`` dim, and for a
+heterogeneous pattern group-stacked ``[G, sub, ...]`` leaves (gemma3 5:1
+local:global, zamba2 6 Mamba2 blocks + the shared attention block, xlstm
+7 mLSTM + 1 sLSTM, deepseek 3 dense + 58 MoE layers). Where the reference
+scans over a stack, the port loops over ``layer_views`` of it.
 
 Training (``loss_fn``) runs the same forward with ``collect=False`` (no
-stacked K/V) and, under ``ParallelConfig.remat == "full"``, each block
+stacked caches) and, under ``ParallelConfig.remat == "full"``, each block
 inside ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``).
+M-RoPE (qwen2-vl) and encoder-decoder models (whisper) come with the slice
+that ports them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.models.attention import attention_specs, attn_forward
+from repro_torch.models import kvcache
+from repro_torch.models.attention import (attention_specs, attn_forward,
+                                          mla_forward, mla_specs)
 from repro_torch.models.context import MCtx
 from repro_torch.models.layers import (chunked_ce_loss, embed_tokens,
                                        embedding_specs, mlp_apply, mlp_specs,
                                        rmsnorm, rmsnorm_spec)
-from repro_torch.models.params import stack_specs, torch_dtype
+from repro_torch.models.moe import moe_ffn, moe_specs
+from repro_torch.models.params import map_specs, stack_specs, torch_dtype
+from repro_torch.models.ssm import ssm_forward, ssm_specs
+from repro_torch.models.xlstm import (mlstm_forward, mlstm_specs,
+                                      slstm_forward, slstm_specs)
 
 
 # --------------------------------------------------------------------------
@@ -36,35 +45,62 @@ from repro_torch.models.params import stack_specs, torch_dtype
 @dataclasses.dataclass(frozen=True)
 class Seg:
     name: str
-    n: int             # stack length (layers)
+    kind: str          # attn | gemma | zamba | mamba | xlstm | xlstm_tail
+    n: int             # stack length (layers or groups)
+    sub: int = 0       # group size: gemma locals / zamba mambas / mlstms
+    moe: bool = False
     window: int = 0
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for an architecture the port does not run yet, naming what
-    brings it. The model slices after the pager slice port these."""
+    brings it."""
     unported = {
-        "hybrid (zamba) segments": cfg.family == "hybrid",
-        "ssm (xlstm) segments": cfg.family == "ssm",
-        "local/global (gemma) segments": cfg.attn_type == "local_global",
-        "MoE layers": cfg.moe is not None,
-        "MLA": cfg.mla is not None or cfg.attn_type == "mla",
         "M-RoPE": cfg.mrope,
         "encoder-decoder models": cfg.encoder_decoder,
     }
     missing = [what for what, hit in unported.items() if hit]
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet; the model "
-            f"slices after the pager slice bring them")
+            f"{cfg.name}: {', '.join(missing)} not ported yet; the slice "
+            f"that ports whisper and qwen2-vl brings them")
 
 
 def segment_plan(cfg: ModelConfig) -> list[Seg]:
-    """The reference's plan for a dense decoder: one stack of attention
-    blocks (sliding-window under ``attn_type="swa"``)."""
     check_supported(cfg)
+    if cfg.family == "hybrid":                      # zamba2
+        n_groups = cfg.num_layers // cfg.attn_every
+        tail = cfg.num_layers - n_groups * cfg.attn_every
+        segs = [Seg("groups", "zamba", n_groups, sub=cfg.attn_every)]
+        if tail:
+            segs.append(Seg("tail", "mamba", tail))
+        return segs
+    if cfg.family == "ssm":                         # xlstm
+        n_groups = cfg.num_layers // cfg.slstm_every
+        tail = cfg.num_layers - n_groups * cfg.slstm_every
+        segs = [Seg("groups", "xlstm", n_groups, sub=cfg.slstm_every - 1)]
+        if tail:
+            segs.append(Seg("tail", "xlstm_tail", tail))
+        return segs
+    if cfg.attn_type == "local_global":             # gemma3
+        g = cfg.local_global_ratio + 1
+        n_groups = cfg.num_layers // g
+        tail = cfg.num_layers - n_groups * g
+        segs = [Seg("groups", "gemma", n_groups, sub=cfg.local_global_ratio,
+                    window=cfg.window)]
+        if tail:
+            segs.append(Seg("tail", "attn", tail, window=cfg.window))
+        return segs
     window = cfg.window if cfg.attn_type == "swa" else 0
-    return [Seg("decoder", cfg.num_layers, window=window)]
+    if cfg.moe is not None:
+        segs = []
+        fd = cfg.moe.first_dense_layers
+        if fd:
+            segs.append(Seg("dense", "attn", fd, window=window))
+        segs.append(Seg("moe", "attn", cfg.num_layers - fd, moe=True,
+                        window=window))
+        return segs
+    return [Seg("decoder", "attn", cfg.num_layers, window=window)]
 
 
 # --------------------------------------------------------------------------
@@ -72,10 +108,59 @@ def segment_plan(cfg: ModelConfig) -> list[Seg]:
 # --------------------------------------------------------------------------
 
 
-def attn_block_specs(cfg: ModelConfig) -> dict:
+def attn_block_specs(cfg: ModelConfig, moe: bool = False) -> dict:
+    d = cfg.d_model
+    specs: dict[str, Any] = {"ln1": rmsnorm_spec(d)}
+    specs["attn"] = (mla_specs(cfg) if cfg.attn_type == "mla"
+                     else attention_specs(cfg))
+    specs["ln2"] = rmsnorm_spec(d)
+    if moe:
+        specs["moe"] = moe_specs(cfg)
+    else:
+        specs["mlp"] = mlp_specs(d, cfg.d_ff)
+    return specs
+
+
+def mamba_block_specs(cfg: ModelConfig) -> dict:
+    return {"ln": rmsnorm_spec(cfg.d_model), "ssm": ssm_specs(cfg)}
+
+
+def shared_attn_specs(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     return {"ln1": rmsnorm_spec(d), "attn": attention_specs(cfg),
             "ln2": rmsnorm_spec(d), "mlp": mlp_specs(d, cfg.d_ff)}
+
+
+def mlstm_block_specs(cfg: ModelConfig) -> dict:
+    return {"ln": rmsnorm_spec(cfg.d_model), "cell": mlstm_specs(cfg)}
+
+
+def slstm_block_specs(cfg: ModelConfig) -> dict:
+    return {"ln": rmsnorm_spec(cfg.d_model), "cell": slstm_specs(cfg)}
+
+
+def seg_specs(cfg: ModelConfig, seg: Seg) -> dict:
+    if seg.kind == "attn":
+        return stack_specs(attn_block_specs(cfg, seg.moe), seg.n)
+    if seg.kind == "gemma":
+        return stack_specs({
+            "local": stack_specs(attn_block_specs(cfg), seg.sub),
+            "global": attn_block_specs(cfg),
+        }, seg.n)
+    if seg.kind == "zamba":
+        return stack_specs({
+            "mamba": stack_specs(mamba_block_specs(cfg), seg.sub),
+        }, seg.n)
+    if seg.kind == "mamba":
+        return stack_specs(mamba_block_specs(cfg), seg.n)
+    if seg.kind == "xlstm":
+        return stack_specs({
+            "mlstm": stack_specs(mlstm_block_specs(cfg), seg.sub),
+            "slstm": slstm_block_specs(cfg),
+        }, seg.n)
+    if seg.kind == "xlstm_tail":
+        return stack_specs(mlstm_block_specs(cfg), seg.n)
+    raise ValueError(seg.kind)
 
 
 def model_specs(cfg: ModelConfig) -> dict:
@@ -83,12 +168,14 @@ def model_specs(cfg: ModelConfig) -> dict:
     specs: dict[str, Any] = {"embed": embedding_specs(cfg),
                              "final_norm": rmsnorm_spec(cfg.d_model)}
     for seg in segment_plan(cfg):
-        specs[seg.name] = stack_specs(attn_block_specs(cfg), seg.n)
+        specs[seg.name] = seg_specs(cfg, seg)
+    if cfg.family == "hybrid":
+        specs["shared_attn"] = shared_attn_specs(cfg)
     return specs
 
 
 # --------------------------------------------------------------------------
-# Block and segment applies (forward)
+# Block applies (forward)
 # --------------------------------------------------------------------------
 
 
@@ -109,15 +196,57 @@ def layer_views(p: dict, n: int) -> list[dict]:
     return split_tree(p)
 
 
+def _zero_aux(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def _attn_block_fwd(p, x, positions, cfg: ModelConfig, mctx: MCtx, *,
-                    window: int, q_chunk: int = 512):
+                    window: int, moe: bool = False, q_chunk: int = 512):
+    """Returns (x, kv, aux)."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
-    a, kv = attn_forward(p["attn"], h, positions, cfg, window=window,
-                         q_chunk=q_chunk, mctx=mctx)
+    if cfg.attn_type == "mla":
+        a, kv = mla_forward(p["attn"], h, positions, cfg, q_chunk=q_chunk)
+    else:
+        a, kv = attn_forward(p["attn"], h, positions, cfg, window=window,
+                             q_chunk=q_chunk, mctx=mctx)
     x = x + a
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    x = x + mlp_apply(p["mlp"], h2)
+    if moe:
+        f, aux = moe_ffn(p["moe"], h2, cfg, mctx)
+    else:
+        f, aux = mlp_apply(p["mlp"], h2), _zero_aux(x)
+    return x + f, kv, aux
+
+
+def _shared_attn_fwd(sa, x, positions, cfg: ModelConfig, *,
+                     q_chunk: int = 512):
+    """zamba2's shared attention block (one weight copy for every group).
+    The reference calls it without its mesh context, so it takes chunked
+    attention and never the flash kernel; so does the port."""
+    h = rmsnorm(x, sa["ln1"], cfg.norm_eps)
+    a, kv = attn_forward(sa["attn"], h, positions, cfg, causal=True,
+                         q_chunk=q_chunk)
+    x = x + a
+    x = x + mlp_apply(sa["mlp"], rmsnorm(x, sa["ln2"], cfg.norm_eps))
     return x, kv
+
+
+def _mamba_block_fwd(p, x, cfg: ModelConfig):
+    out, cache = ssm_forward(p["ssm"], rmsnorm(x, p["ln"], cfg.norm_eps),
+                             cfg)
+    return x + out, cache
+
+
+def _mlstm_block_fwd(p, x, cfg: ModelConfig):
+    out, cache = mlstm_forward(p["cell"], rmsnorm(x, p["ln"], cfg.norm_eps),
+                               cfg)
+    return x + out, cache
+
+
+def _slstm_block_fwd(p, x, cfg: ModelConfig):
+    out, cache = slstm_forward(p["cell"], rmsnorm(x, p["ln"], cfg.norm_eps),
+                               cfg)
+    return x + out, cache
 
 
 def _to_ring(kv: dict, window: int, S: int) -> dict:
@@ -130,29 +259,110 @@ def _to_ring(kv: dict, window: int, S: int) -> dict:
     return {k: conv(v) for k, v in kv.items()}
 
 
-def seg_forward(p, x, positions, cfg: ModelConfig, mctx: MCtx, seg: Seg, *,
-                collect: bool, remat: bool = False, q_chunk: int = 512):
-    """Run one segment. Returns (x, caches): with ``collect`` the caches are
-    stacked [L, ...], else None. ``remat`` recomputes each block in the
-    backward pass instead of keeping its activations."""
-    S = x.shape[1]
-    kvs = []
+def _stack(trees: list):
+    """Stack a list of same-structure trees leaf by leaf (a new leading
+    dim)."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
 
-    def block(x, lp):
-        return _attn_block_fwd(lp, x, positions, cfg, mctx,
-                               window=seg.window, q_chunk=q_chunk)[0]
+
+def _apply(fn, x, p, *, collect: bool, remat: bool):
+    """``fn(p, x) -> (x, cache, aux)`` applied to one block: the cache is
+    kept only with ``collect``; with ``remat`` (and no cache to keep) the
+    block is recomputed in the backward pass instead of keeping its
+    activations."""
+    if collect:
+        return fn(p, x)
+    if remat:
+        def kept(x_, p_):
+            y, _, aux = fn(p_, x_)
+            return y, aux
+        x, aux = checkpoint(kept, x, p, use_reentrant=False)
+        return x, None, aux
+    x, _, aux = fn(p, x)
+    return x, None, aux
+
+
+def seg_forward(p, x, positions, cfg: ModelConfig, mctx: MCtx, seg: Seg, *,
+                collect: bool, remat: bool = False, shared_attn=None,
+                q_chunk: int = 512):
+    """Run one segment. Returns (x, caches, aux): with ``collect`` the
+    caches are stacked like the segment's parameters ([n, ...], a group's
+    inner stack [n, sub, ...]), else None; aux is the segment's summed MoE
+    load-balancing loss (0 without MoE). ``remat`` recomputes each block in
+    the backward pass instead of keeping its activations."""
+    S = x.shape[1]
+    aux = _zero_aux(x)
+
+    def run(fn, x, p):
+        return _apply(fn, x, p, collect=collect, remat=remat)
+
+    def attn_blk(window, moe):
+        def fn(lp, x):
+            x, kv, a = _attn_block_fwd(lp, x, positions, cfg, mctx,
+                                       window=window, moe=moe,
+                                       q_chunk=q_chunk)
+            return x, (_to_ring(kv, window, S) if collect else None), a
+        return fn
+
+    def no_aux(block):               # a block with no MoE loss
+        def fn(lp, x):
+            return (*block(lp, x, cfg), None)
+        return fn
+
+    def shared_blk(sa, x):
+        return (*_shared_attn_fwd(sa, x, positions, cfg, q_chunk=q_chunk),
+                None)
+
+    if seg.n == 0:                  # a plan may leave a segment empty
+        caches = (_empty_caches(cfg, seg, x.shape[0], S, x.device)
+                  if collect else None)
+        return x, caches, aux
+
+    caches = []
     for lp in layer_views(p, seg.n):
-        if collect:
-            x, kv = _attn_block_fwd(lp, x, positions, cfg, mctx,
-                                    window=seg.window, q_chunk=q_chunk)
-            kvs.append(_to_ring(kv, seg.window, S))
-        elif remat:
-            x = checkpoint(block, x, lp, use_reentrant=False)
+        if seg.kind == "attn":
+            x, c, a = run(attn_blk(seg.window, seg.moe), x, lp)
+            aux = aux + a
+        elif seg.kind == "gemma":
+            local = []
+            for ll in layer_views(lp["local"], seg.sub):
+                x, c, a = run(attn_blk(seg.window, False), x, ll)
+                local.append(c)
+            x, gc, a = run(attn_blk(0, False), x, lp["global"])
+            c = {"local": _stack(local), "global": gc} if collect else None
+        elif seg.kind == "zamba":
+            mam = []
+            for ll in layer_views(lp["mamba"], seg.sub):
+                x, mc, _ = run(no_aux(_mamba_block_fwd), x, ll)
+                mam.append(mc)
+            x, kv, _ = run(shared_blk, x, shared_attn)
+            c = {"mamba": _stack(mam), "attn": kv} if collect else None
+        elif seg.kind == "mamba":
+            x, c, _ = run(no_aux(_mamba_block_fwd), x, lp)
+        elif seg.kind == "xlstm":
+            ml = []
+            for ll in layer_views(lp["mlstm"], seg.sub):
+                x, mc, _ = run(no_aux(_mlstm_block_fwd), x, ll)
+                ml.append(mc)
+            x, sc, _ = run(no_aux(_slstm_block_fwd), x, lp["slstm"])
+            c = {"mlstm": _stack(ml), "slstm": sc} if collect else None
+        elif seg.kind == "xlstm_tail":
+            x, c, _ = run(no_aux(_mlstm_block_fwd), x, lp)
         else:
-            x = block(x, lp)
-    if not collect:
-        return x, None
-    return x, {k: torch.stack([kv[k] for kv in kvs]) for k in kvs[0]}
+            raise ValueError(seg.kind)
+        caches.append(c)
+    return x, (_stack(caches) if collect else None), aux
+
+
+def _empty_caches(cfg: ModelConfig, seg: Seg, B: int, S: int, device):
+    """The collected caches of a segment of no layers: empty stacks of the
+    decode cache's shapes at length S."""
+    return map_specs(lambda s: torch.zeros(s.shape,
+                                           dtype=torch_dtype(s.dtype),
+                                           device=device),
+                     kvcache.seg_cache_specs(cfg, seg, B, S))
 
 
 # --------------------------------------------------------------------------
@@ -167,9 +377,9 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 def forward_hidden(params, cfg: ModelConfig, mctx: MCtx, batch: dict, *,
                    collect: bool = False, remat: bool = False,
                    q_chunk: int = 512):
-    """Returns (hidden (B,S,d), caches). Decoder-only archs; with
-    ``collect`` the caches are the rope'd k/v of every layer, else None per
-    segment.
+    """Returns (hidden (B,S,d), caches, aux). Decoder-only archs; with
+    ``collect`` the caches are every segment's stacked caches, else None
+    per segment; aux is the MoE load-balancing loss summed over layers.
 
     Positions run ``arange(S)`` for every row and there is no padding mask,
     as in the reference.
@@ -178,28 +388,31 @@ def forward_hidden(params, cfg: ModelConfig, mctx: MCtx, batch: dict, *,
     x = embed_tokens(params["embed"], batch["tokens"], torch_dtype(cfg.dtype))
     B, S = x.shape[:2]
     positions = _positions(B, S, x.device)
-    caches = {}
+    caches: dict[str, Optional[Any]] = {}
+    aux = _zero_aux(x)
+    shared = params.get("shared_attn")
     for seg in plan:
-        x, c = seg_forward(params[seg.name], x, positions, cfg, mctx, seg,
-                           collect=collect, remat=remat, q_chunk=q_chunk)
+        x, c, a = seg_forward(params[seg.name], x, positions, cfg, mctx, seg,
+                              collect=collect, remat=remat,
+                              shared_attn=shared, q_chunk=q_chunk)
         caches[seg.name] = c
+        aux = aux + a
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return x, caches
+    return x, caches, aux
 
 
 def loss_fn(params, cfg: ModelConfig, mctx: MCtx, batch: dict,
             aux_coef: float = 0.001, q_chunk: int = 512):
-    """Mean next-token cross-entropy of ``batch`` ({tokens, labels}) and
-    its parts. Dense decoders carry no auxiliary loss (the reference's
-    ``aux`` is 0 for them too)."""
+    """Mean next-token cross-entropy of ``batch`` ({tokens, labels}) plus
+    ``aux_coef`` times the MoE load-balancing loss, and its parts (aux is
+    0 without MoE, as in the reference)."""
     if mctx.parallel.attention_kernel == "kernel":
         raise ValueError("attention_kernel='kernel' has no backward pass "
                          "(neither has the reference's Pallas kernel); "
                          "training takes attention_kernel='eager'")
     remat = mctx.parallel.remat != "none"
-    x, _ = forward_hidden(params, cfg, mctx, batch, remat=remat,
-                          q_chunk=q_chunk)
+    x, _, aux = forward_hidden(params, cfg, mctx, batch, remat=remat,
+                               q_chunk=q_chunk)
     ce = chunked_ce_loss(x, params["embed"], batch["labels"],
                          cfg.tie_embeddings)
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     return ce + aux_coef * aux, {"ce": ce, "aux": aux}

@@ -48,7 +48,10 @@ def compute_grads(model: Model, params_c, batch,
     paths = [path for path, _ in flat]
     leaves = [p.detach().requires_grad_() for _, p in flat]
     loss, parts = loss_fn(pm.tree_unflatten(paths, leaves), cfg, mctx, batch)
-    grads = list(torch.autograd.grad(loss, leaves))
+    # a leaf the loss does not read (a segment of no layers, as reduced
+    # gemma3's) gets a zero gradient, as under jax.grad
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
+        leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
     del leaves
     loss, parts = loss.detach(), {k: v.detach() for k, v in parts.items()}
     group = mctx.pod_group

@@ -18,7 +18,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
-from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
+from repro_torch.kernels.flash_attention.ops import takes_head_dim
 
 # tests/test_kernels.py's tolerances and sweep
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -30,6 +30,9 @@ SWEEP = [
     (1, 2, 2, 256, 64, True, 64, 64),    # sliding window
     (1, 2, 2, 128, 128, True, 0, 128),   # MXU-aligned head dim
 ]
+# head dims the kernel rounds up to an instantiation's: zamba2's attention
+# (112) and one between the bf16 instantiations (80); 8, the least it takes
+HEAD_DIMS = (8, 16, 32, 64, 80, 112, 128)
 
 
 def _inputs(B, Hq, Hkv, S, d, seed=42):
@@ -72,9 +75,34 @@ def test_cpu_tensors_take_the_plain_version():
     q, k, v = (_torch(a, "float32") for a in _inputs(2, 4, 2, 64, 16))
     kernels.reset_launches()
     out = flash_attention(q, k, v, causal=True)
+    windowed = flash_attention(q, k, v, causal=True, window=16)
     assert kernels.LAUNCHES["flash_attention"] == 0
+    assert kernels.LAUNCHES["flash_attention_windowed"] == 0
     torch.testing.assert_close(out, flash_attention_ref(q, k, v),
                                rtol=0, atol=0)
+    torch.testing.assert_close(windowed, flash_attention_ref(q, k, v,
+                                                             window=16),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("d,causal", [(112, True), (80, True),
+                                      (112, False)])
+def test_plain_matches_reference_at_other_head_dims(d, causal):
+    """The plain version against the reference's Pallas kernel (interpret
+    mode) at head dims that are no power of two, zamba2's 112 among them."""
+    from repro.kernels.flash_attention import flash_attention as jax_flash
+    q, k, v = _inputs(1, 4, 2, 128, d)
+    kern = jax_flash(*(_jax(a, "float32") for a in (q, k, v)),
+                     causal=causal, q_blk=64, kv_blk=64)
+    out = flash_attention(*(_torch(a, "float32") for a in (q, k, v)),
+                          causal=causal)
+    np.testing.assert_allclose(out.numpy(), np.asarray(kern, np.float32),
+                               rtol=TOL["float32"], atol=TOL["float32"])
+
+
+def test_head_dim_rule():
+    assert all(takes_head_dim(d) for d in HEAD_DIMS)
+    assert not any(takes_head_dim(d) for d in (0, 4, 44, 100, 136, 256))
 
 
 def test_mixed_devices_are_refused():
@@ -89,6 +117,9 @@ def test_mixed_devices_are_refused():
     *(s[:7] for s in SWEEP),
     (1, 4, 2, 100, 16, True, 0),          # ragged edge, reduced head dim
     (4, 32, 4, 1024, 128, True, 0),       # yi-9b prefill
+    (1, 4, 2, 200, 112, True, 0),         # zamba2's head dim
+    (1, 4, 2, 200, 80, True, 64),         # no instantiation's head dim
+    (1, 4, 4, 160, 112, False, 0),        # bidirectional (an encoder)
 ])
 def test_kernel_matches_plain_on_card(dtype, B, Hq, Hkv, S, d, causal,
                                       window):
@@ -96,10 +127,13 @@ def test_kernel_matches_plain_on_card(dtype, B, Hq, Hkv, S, d, causal,
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     q, k, v = (_torch(a, dtype, "cuda") for a in _inputs(B, Hq, Hkv, S, d))
-    before = kernels.LAUNCHES["flash_attention"]
+    before = dict(kernels.LAUNCHES)
     out = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    assert kernels.LAUNCHES["flash_attention"] == \
+        before["flash_attention"] + 1
+    assert kernels.LAUNCHES["flash_attention_windowed"] == \
+        before["flash_attention_windowed"] + bool(window)
     ref = flash_attention_ref(q, k, v, causal=causal, window=window)
     tol = TOL[dtype]
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
@@ -134,14 +168,15 @@ def test_kernel_reads_model_layout_in_place_on_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["float16", "head_dim_48", "strided_dim"])
+@pytest.mark.parametrize("case", ["float16", "head_dim_44", "head_dim_136",
+                                  "strided_dim"])
 def test_kernel_refuses_what_it_does_not_take_on_card(case):
     _card()
     shape, dtype = (1, 2, 64, 64), torch.float32
     if case == "float16":
         dtype = torch.float16
-    if case == "head_dim_48":
-        shape = (1, 2, 64, 48)
+    if case.startswith("head_dim_"):
+        shape = (1, 2, 64, int(case.split("_")[-1]))
     q = torch.randn(*shape, device="cuda", dtype=dtype)
     if case == "strided_dim":
         q = torch.randn(*shape[:3], 2 * shape[3], device="cuda")[..., ::2]
@@ -169,6 +204,8 @@ def _model_layout(B, H, S, d, gen, pad=0, offset=0):
     (1, 8, 2, 384, 64, True, 100),       # a window straddling KV tiles
     (1, 4, 4, 200, 128, False, 130),     # bidirectional, windowed
     *((1, 8, 2, 160, d, True, 0) for d in HEAD_DIMS),   # every head dim
+    (1, 8, 2, 300, 112, True, 200),      # zamba2's head dim, windowed
+    (2, 8, 8, 256, 80, False, 0),        # bidirectional, d between tiles
 ])
 def test_tensor_core_kernel_bf16_on_card(B, Hq, Hkv, S, d, causal, window):
     """The bf16 kernel (wgmma) on the model's (B, S, H, d) layout against
@@ -177,10 +214,13 @@ def test_tensor_core_kernel_bf16_on_card(B, Hq, Hkv, S, d, causal, window):
     g = torch.Generator(device="cuda").manual_seed(S + d)
     q = _model_layout(B, Hq, S, d, g)
     k, v = (_model_layout(B, Hkv, S, d, g) for _ in range(2))
-    before = kernels.LAUNCHES["flash_attention"]
+    before = dict(kernels.LAUNCHES)
     out = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    assert kernels.LAUNCHES["flash_attention"] == \
+        before["flash_attention"] + 1
+    assert kernels.LAUNCHES["flash_attention_windowed"] == \
+        before["flash_attention_windowed"] + bool(window)
     assert out.stride() == q.stride()
     o = out.float()
     r = flash_attention_ref(q, k, v, causal=causal, window=window).float()
@@ -221,4 +261,67 @@ def test_tensor_core_kernel_unaligned_layout_on_card():
     o, r = out.float(), flash_attention_ref(q, k, v).float()
     torch.testing.assert_close(o, r, rtol=TOL["bfloat16"],
                                atol=TOL["bfloat16"])
+    assert ((o - r).norm() / r.norm()).item() <= 1e-2
+
+
+def _attn_case(device, dtype="float32", d=112):
+    """Reduced zamba2 attention weights (head dim ``d``) and an input, for
+    ``attn_forward``."""
+    import dataclasses
+    from repro_torch.config.base import ParallelConfig, get_config
+    from repro_torch.models.attention import attention_specs
+    from repro_torch.models.context import MCtx
+    from repro_torch.models.params import init_params
+    cfg = dataclasses.replace(get_config("zamba2-7b").reduced(dtype=dtype),
+                              head_dim=d)
+    g = torch.Generator(device=device).manual_seed(5)
+    p = init_params(attention_specs(cfg), g, device,
+                    getattr(torch, dtype))
+    x = torch.randn(2, 96, cfg.d_model, generator=g, device=device).to(
+        getattr(torch, dtype))
+    pos = torch.arange(96, device=device)[None].expand(2, 96)
+    mctx = {k: MCtx(ParallelConfig(attention_kernel=k),
+                    torch.device(device)) for k in ("eager", "kernel")}
+    return cfg, p, x, pos, mctx
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_attn_forward_threads_causal_as_reference(causal):
+    """attn_forward(causal=...) on both paths (the kernel's plain version
+    here) against the reference's attn_forward, at zamba2's head dim."""
+    import jax
+    from repro.config.base import get_config as jax_get_config
+    from repro.models.attention import attn_forward as jax_attn_forward
+    from repro_torch.models.attention import attn_forward
+    cfg, p, x, pos, mctx = _attn_case("cpu")
+    jcfg = jax_get_config("zamba2-7b").reduced(dtype="float32",
+                                               head_dim=cfg.head_dim)
+    want, _ = jax_attn_forward(jax.tree.map(lambda t: _jax(t.numpy(),
+                                                           "float32"), p),
+                               _jax(x.numpy(), "float32"),
+                               _jax(pos.numpy(), "int32"), jcfg,
+                               causal=causal, q_chunk=32)
+    for path in ("eager", "kernel"):
+        got, _ = attn_forward(p, x, pos, cfg, causal=causal, q_chunk=32,
+                              mctx=mctx[path])
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                                   atol=2e-4, err_msg=path)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_attn_forward_reaches_kernel_with_causal_on_card(causal):
+    """causal=False reaches K1 from attn_forward (one launch), at a head
+    dim of 112, and agrees with the eager path on the same weights."""
+    _card()
+    from repro_torch.models.attention import attn_forward
+    cfg, p, x, pos, mctx = _attn_case("cuda", "bfloat16")
+    before = kernels.LAUNCHES["flash_attention"]
+    got, _ = attn_forward(p, x, pos, cfg, causal=causal,
+                          mctx=mctx["kernel"])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    want, _ = attn_forward(p, x, pos, cfg, causal=causal,
+                           mctx=mctx["eager"])
+    o, r = got.float(), want.float()
     assert ((o - r).norm() / r.norm()).item() <= 1e-2

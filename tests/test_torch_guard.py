@@ -32,8 +32,18 @@ def test_port_imports_neither_jax_nor_repro():
                      "calibrate.runner", "calibrate.validate",
                      "heimdall.micro", "heimdall.apps",
                      "heimdall.calibration", "heimdall.obs",
-                     "kernels.probes.ops", "kernels.probes.ref"):
+                     "kernels.probes.ops", "kernels.probes.ref",
+                     "models.moe", "models.ssm", "models.xlstm",
+                     "models.attention", "models.kvcache",
+                     "configs.qwen2_72b", "configs.qwen15_110b",
+                     "configs.gemma3_27b", "configs.mixtral_8x22b",
+                     "configs.deepseek_v3_671b", "configs.zamba2_7b",
+                     "configs.xlstm_350m"):
             assert "repro_torch." + name in names, name
+        from repro_torch.configs import list_archs
+        assert {{"gemma3-27b", "mixtral-8x22b", "deepseek-v3-671b",
+                 "zamba2-7b", "xlstm-350m", "qwen2-72b", "qwen1.5-110b",
+                 "yi-9b"}} <= set(list_archs()), list_archs()
         print(len(names))
     """)
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True,

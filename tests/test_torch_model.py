@@ -23,8 +23,7 @@ from repro.config.base import ParallelConfig as JaxParallelConfig
 from repro.config.base import get_config as jax_get_config
 from repro.launch.mesh import make_host_mesh
 from repro.models.model import Model as JaxModel
-from repro_torch.config.base import (MLAConfig, MoEConfig, ParallelConfig,
-                                     get_config)
+from repro_torch.config.base import ParallelConfig, get_config
 from repro_torch.models.model import Model
 from repro_torch.models.params import params_from_jax
 
@@ -140,11 +139,6 @@ def test_prefill_and_decode_match_reference(kernel, dtype, window):
 
 
 @pytest.mark.parametrize("change,named", [
-    (dict(family="hybrid", attn_every=2), "zamba"),
-    (dict(family="ssm", slstm_every=2), "xlstm"),
-    (dict(attn_type="local_global", local_global_ratio=1, window=8), "gemma"),
-    (dict(family="moe", moe=MoEConfig(num_experts=4)), "MoE"),
-    (dict(attn_type="mla", mla=MLAConfig()), "MLA"),
     (dict(mrope=True), "M-RoPE"),
     (dict(encoder_decoder=True, num_encoder_layers=2), "encoder-decoder"),
 ])
