@@ -7,7 +7,7 @@
     python3 chip_smoke.py --only serve,serve_offload  # HBM, then offloaded
     python3 chip_smoke.py --only degrade,disagg # the pager's consumers
     python3 chip_smoke.py --only heimdall       # probes, micro, apps, fit
-    python3 chip_smoke.py --only models         # the decoder-only zoo
+    python3 chip_smoke.py --only models         # the model zoo
     python3 chip_smoke.py --only kernel         # K1's holds and timing
 
 Phases, one JSON line each, in this order (the train phases come first,
@@ -45,11 +45,13 @@ while the host has the most memory to pin):
                  3, then a second train() resumed from it; the resumed losses
                  must match the uninterrupted run's within 1e-5 relative
   kernel         K1 (flash attention) held against its plain PyTorch version
-                 at the kernel sweep shapes and the yi-9b and mixtral-8x22b
-                 prefill shapes, fp32 and bf16; at the yi-9b shape in bf16 its time beside
-                 the plain version's, one scaled_dot_product_attention call
-                 (a yardstick only; the port never calls it) and the least
-                 time the card could take
+                 at the kernel sweep shapes and the yi-9b, mixtral-8x22b and
+                 qwen2-vl-72b prefill shapes and whisper-small's encoder
+                 shape (S = 1500, bidirectional, d 64), fp32 and bf16; at
+                 the yi-9b, whisper and qwen2-vl shapes in bf16 its time
+                 beside the plain version's, one scaled_dot_product_attention
+                 call (a yardstick only; the port never calls it) and the
+                 least time the card could take
   paged_kernels  K2 and K3 (paged attention, fp and int8) against their
                  plain versions over the test sweeps, the split kernel's
                  edge cases (a zero-length row, rows shorter than one split,
@@ -148,8 +150,8 @@ while the host has the most memory to pin):
                  on the card: a simulator output, labelled so
   kv_quant       the kv_quant family's kernel rows (K2 and K3 wall time at
                  the family's small shape) run on the card
-  models         the decoder-only model zoo through ServeEngine, each with
-                 seeded bf16 weights drawn on the card, 4 requests: gemma3-27b
+  models         the model zoo, each with seeded bf16 weights drawn on the
+                 card, 4 requests; through ServeEngine: gemma3-27b
                  uncut (62 layers, 56.84 GB; prompts of 2048 tokens, twice
                  its local layers' 1024-token window, and 32 new tokens),
                  exactly 62 K1 launches a prefill, 52 of them windowed (both
@@ -164,7 +166,29 @@ while the host has the most memory to pin):
                  prompts, no K1, as in the reference; 8 decode steps each
                  at most DECODE_GAP_RATIO times as far from an eager fp32
                  forward as the eager bf16 forward is, and xlstm's also
-                 within 3e-2 of the bf16 forward). Each prints prefill and
+                 within 3e-2 of the bf16 forward); qwen2-vl-72b at full
+                 width with 28 of its 80 layers (54.2 GB; served by tokens,
+                 as the reference's engine does: 1024-token prompts, 28 K1
+                 launches a prefill, 32 decode steps within 3e-2 of the
+                 eager forward), then its M-RoPE grid batch (the prompt's
+                 token embeddings with a 24 x 24 image grid of (t, h, w)
+                 positions) through K1 against the eager path, 4 decode
+                 steps against the forward over the same positions, and
+                 apply_rope on the card at head dim 128 over the grid
+                 within 1e-2 of the reference's M-RoPE formula in float64
+                 (plain RoPE's positions over 1e-1 from it);
+                 deepseek-v3 at full width with its 3 dense and 2 of its MoE
+                 layers (53 GB; MLA on chunked attention, no K1, the dropped
+                 (token, slot) pairs printed), then its MLA decode on the
+                 dense layers alone, 8 steps within 3e-2 of the forward;
+                 and through Model.prefill({"frames"}) and Model.decode (the
+                 engine serves token prompts): whisper-small uncut (4 x 1500
+                 frames drawn from the seed, a fixed start token, 32 greedy
+                 steps; exactly 12 K1 launches a prefill, none windowed, the
+                 encoder through K1 within 3e-2 of the eager encoder, the
+                 cross caches (12, 4, 1500, 12, 64) within 1e-2 of the
+                 encoder output's projections, every decode step within
+                 3e-2 of an eager encdec_forward). Each prints prefill and
                  decode times, tokens/s, device time and idle share, peak memory,
                  and the bf16 noise floor of the comparison (the eager
                  forward of each request alone against the batch). Before
@@ -175,7 +199,8 @@ while the host has the most memory to pin):
                  computes the same attention (the window as a mask: cuDNN,
                  memory-efficient with GQA or on expanded K/V, math; each
                  tried, held and timed) and the bound of the unmasked work
-  kernels       every ported kernel (K1-K7, K1 again at gemma3-27b's two
+  kernels       every ported kernel (K1-K7, K1 again at whisper-small's
+                 encoder, qwen2-vl-72b's prefill and gemma3-27b's two
                  shapes, then the probes P1-P4) with its
                  launches on the main paths, its error against its plain
                  version and its times: CUDA events over 20 back-to-back
@@ -243,6 +268,13 @@ YI_PREFILL = (4, 32, 4, 1024, 128, True, 0)
 # the models phase's mixtral-8x22b prefill: 48 / 8 heads of 128, 1024
 # tokens under its 4096-token window
 MIXTRAL_PREFILL = (4, 48, 8, 1024, 128, True, 4096)
+# the models phase's two new K1 shapes: whisper-small's encoder (4 requests
+# of 1500 frames, 12 MHA heads of 64, bidirectional; 1500 is ragged against
+# every tile) and qwen2-vl-72b's prefill (64 / 8 heads of 128, causal)
+WHISPER_ENCODER = (4, 12, 12, 1500, 64, False, 0)
+QWEN2VL_PREFILL = (4, 64, 8, 1024, 128, True, 0)
+K1_MODEL_SHAPES = {"whisper_encoder": WHISPER_ENCODER,
+                   "qwen2vl_prefill": QWEN2VL_PREFILL}
 N_REQUESTS, PROMPT, GEN = 4, 1024, 32
 # (B, Hq, Hkv, d, page, pps): tests/test_kernels.py's paged sweep and
 # tests/test_kv_quant.py's wide GQA case
@@ -315,10 +347,43 @@ OVERLAP_ROWS = 16384
 # 2.8e-2 (relative L2) when each request runs alone instead of in the batch
 # (81 random layers amplify the GEMMs' other summation order), so against
 # the bf16 forward a 3e-2 bound cannot tell a fault from rounding.
+#
+# qwen2-vl-72b keeps 28 of its 80 layers at full width (49.2 GB of layers
+# and 4.98 GB of embeddings, room left for the checks' eager forward) and is
+# served by tokens, as the reference's engine serves it (M-RoPE's rows
+# equal); its M-RoPE grid batch is MROPE_GRID below. deepseek-v3 keeps its 3
+# dense layers and 2 of its 58 MoE layers (53 GB); it runs no K1 (MLA takes
+# chunked attention, as in the reference) and its MoE decode is not held
+# against a forward, for mixtral's reason: its MLA decode is held instead,
+# on the dense layers alone (MLA_DENSE_STEPS).
 MODELS = [("gemma3-27b", None, 2048, 32, 32, 0, (62, 52)),
           ("mixtral-8x22b", 8, 1024, 16, 0, 0, (8, 8)),
           ("zamba2-7b", None, 1024, 16, 0, 8, (0, 0)),
-          ("xlstm-350m", None, 1024, 16, 8, 8, (0, 0))]
+          ("xlstm-350m", None, 1024, 16, 8, 8, (0, 0)),
+          ("qwen2-vl-72b", 28, 1024, 32, 32, 0, (28, 0)),
+          ("deepseek-v3-671b", 5, 1024, 16, 0, 0, (0, 0))]
+# whisper-small uncut through Model.prefill({"frames"}) and Model.decode
+# (the engine serves token prompts): 4 requests of 1500 frames (30 s of
+# audio) drawn from the seed, a fixed start token, 32 greedy steps with the
+# self cache sized to them; exactly 12 K1 launches a prefill (its encoder)
+WHISPER = {"requests": 4, "gen": 32, "start_token": 50258, "seed": 0,
+           "k1": (12, 0)}
+# qwen2-vl's M-RoPE grid batch: the prompt's token embeddings (the vision
+# stub's embeds, as the reference's test builds them) with text positions
+# for the first 128 tokens, then a 24 x 24 image grid (t fixed, h the row,
+# w the column, all from 128), then text from 152 on; held through K1
+# against the eager path and for 4 decode steps against the eager forward
+# over the same positions (new tokens at their decode position in all
+# three axes, as decode_step places them). Both paths turn q and k by the
+# same apply_rope, and with random weights the grid's positions move the
+# last logits by about as much as bf16 rounding (1.1e-2 against plain
+# RoPE's positions, read on an H100 80GB HBM3 at 700 W), so the section
+# split itself is held
+# where it shows: apply_rope over the grid against the reference's formula
+MROPE_GRID = {"text": 128, "side": 24, "steps": 4}
+# deepseek-v3's MLA decode on its 3 dense layers (the MoE layers' weights
+# left out): greedy steps held within LOGITS_REL_L2 of the eager forward
+MLA_DENSE_STEPS = 8
 # A bf16 decode step's gap to the forward in fp32 activations (the same
 # weights and tokens) may be at most this many times the bf16 forward's own
 # gap to it. Read on the card at full width: 0.98-1.05 for zamba2 (gaps of
@@ -608,15 +673,54 @@ def _qkv(shape, dtype, gen):
     return mk(Hq), mk(Hkv), mk(Hkv)
 
 
+def k1_timing(shape, gen) -> dict:
+    """K1 in bf16 at ``shape`` (no window): its time (CUDA events and
+    device time), the plain version's, one SDPA call that computes the same
+    attention (``is_causal`` as the shape says, GQA heads as they are; held
+    against the plain version too) and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    causal = shape[5]
+    q, k, v = _qkv(shape, "bfloat16", gen)
+
+    def kern():
+        return flash_attention(q, k, v, causal=causal)
+
+    def plain():
+        return flash_attention_ref(q, k, v, causal=causal)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              enable_gqa=True)
+    timing = {
+        "kernel_ms": cuda_ms(kern),
+        "kernel_device": device_ms_per_call(kern),
+        "plain_ms": cuda_ms(plain),
+        "library_ms": cuda_ms(library),
+        "library_device": device_ms_per_call(library, kernels_per_call=None),
+        "library_rel_l2": _rel_l2(library(), plain()),
+    }
+    bound = attention_bound(shape, "bfloat16")
+    timing.update(bound_us=bound["bound_ms"] * 1e3,
+                  bound_by=bound["bound_by"], flops=bound["flops"],
+                  bytes=bound["bytes"],
+                  tflops=bound["flops"] / timing["kernel_ms"] / 1e9,
+                  roofline_share=bound["bound_ms"] / timing["kernel_ms"],
+                  roofline_share_device=ratio(
+                      bound["bound_ms"], timing["kernel_device"]["ms"]))
+    return timing
+
+
 def phase_kernel() -> dict:
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
     for dtype in ("float32", "bfloat16"):
-        for shape in (*SWEEP, YI_PREFILL, MIXTRAL_PREFILL):
+        for shape in (*SWEEP, YI_PREFILL, MIXTRAL_PREFILL,
+                      *K1_MODEL_SHAPES.values()):
             causal, window = shape[5], shape[6]
             q, k, v = _qkv(shape, dtype, gen)
             out = flash_attention(q, k, v, causal=causal, window=window)
@@ -633,40 +737,25 @@ def phase_kernel() -> dict:
                           "ok": bool(ok)})
     bad = [c for c in cases if not c["ok"]]
 
-    q, k, v = _qkv(YI_PREFILL, "bfloat16", gen)
-
-    def kern():
-        return flash_attention(q, k, v, causal=True)
-
-    def library():
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                              enable_gqa=True)
-    timing = {
-        "kernel_ms": cuda_ms(kern),
-        "kernel_device": device_ms_per_call(kern),
-        "plain_ms": cuda_ms(lambda: flash_attention_ref(q, k, v,
-                                                        causal=True)),
-        "library_ms": cuda_ms(library),
-        "library_device": device_ms_per_call(library, kernels_per_call=None),
-    }
-    bound = attention_bound(YI_PREFILL, "bfloat16")
-    timing.update(bound_us=bound["bound_ms"] * 1e3,
-                  bound_by=bound["bound_by"], flops=bound["flops"],
-                  bytes=bound["bytes"],
-                  tflops=bound["flops"] / timing["kernel_ms"] / 1e9,
-                  roofline_share=bound["bound_ms"] / timing["kernel_ms"],
-                  roofline_share_device=ratio(
-                      bound["bound_ms"], timing["kernel_device"]["ms"]))
-    yi_bf16 = next(c for c in cases if c["dtype"] == "bfloat16"
-                   and c["shape"] == list(YI_PREFILL))
+    def held(shape):
+        c = next(c for c in cases if c["dtype"] == "bfloat16"
+                 and c["shape"] == list(shape))
+        return {"max_abs_err": c["max_abs_err"], "rel_l2": c["rel_l2"]}
     out = {"phase": "kernel", "kernel": "flash_attention", "cases": cases,
-           "yi_prefill_bf16": {**timing,
-                               "max_abs_err": yi_bf16["max_abs_err"],
-                               "rel_l2": yi_bf16["rel_l2"]}}
+           "yi_prefill_bf16": {**k1_timing(YI_PREFILL, gen),
+                               **held(YI_PREFILL)},
+           "model_shapes": {name: {**k1_timing(shape, gen), **held(shape),
+                                   "shape": list(shape)}
+                            for name, shape in K1_MODEL_SHAPES.items()}}
     emit(out)
     if bad:
         raise AssertionError(f"flash_attention disagrees with its plain "
                              f"version: {bad}")
+    sdpa = {n: t["library_rel_l2"] for n, t in out["model_shapes"].items()
+            if t["library_rel_l2"] > BF16_REL_L2}
+    if sdpa:
+        raise AssertionError(f"SDPA does not compute K1's attention at "
+                             f"{sdpa}")
     return out
 
 
@@ -2577,6 +2666,153 @@ def decode_vs_forward(cfg, params, batch, steps: int, fp32_steps: int) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+def grid_positions(B: int, S: int, device) -> "torch.Tensor":
+    """MROPE_GRID's (3, B, S) M-RoPE positions: text, an image grid (t
+    fixed, h the row, w the column, offset by the text before it), then
+    text again from the grid's largest position + 1."""
+    import torch
+    text, side = MROPE_GRID["text"], MROPE_GRID["side"]
+    end = text + side * side
+    pos = torch.zeros(3, S, dtype=torch.long)
+    pos[:, :text] = torch.arange(text)
+    g = torch.arange(side * side)
+    pos[0, text:end] = text
+    pos[1, text:end] = text + g // side
+    pos[2, text:end] = text + g % side
+    pos[:, end:] = text + side + torch.arange(S - end)
+    return pos[:, None].expand(3, B, S).to(device)
+
+
+def mrope_plain(x, pos, theta: float):
+    """The reference's M-RoPE formula (``repro/models/layers.py:45-70``) in
+    numpy float64: x (B, S, H, d), pos (3, B, S); each of the three
+    sections of the d / 2 frequencies (16 : 24 : 24, rescaled in integer
+    arithmetic) turns with its own row of positions."""
+    import numpy as np
+    half = x.shape[-1] // 2
+    secs = [s * half // 64 for s in (16, 24, 24)]
+    secs[-1] = half - sum(secs[:-1])
+    freqs = 1.0 / theta ** (np.arange(half) / half)
+    ang = pos[np.repeat(np.arange(3), secs)].transpose(1, 2, 0) * freqs
+    cos, sin = np.cos(ang)[..., None, :], np.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return np.concatenate([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+
+
+def mrope_grid_check(cfg, params, batch) -> dict:
+    """qwen2-vl's M-RoPE with distinct (t, h, w) rows (equal rows are
+    plain RoPE): ``apply_rope`` on the card at the model's head dim over
+    MROPE_GRID's positions against ``mrope_plain`` (the section split;
+    plain RoPE's positions must turn it far from there); ``Model.prefill``
+    of the vision stub's batch (``embeds`` the prompt's token embeddings,
+    the grid's positions) through K1 against the eager path's, then greedy
+    decode steps each against the eager forward over the same embeddings
+    and positions. How far plain RoPE's positions move the eager prefill's
+    logits is printed, not held: with random weights attention averages
+    over many keys, so positions barely move the logits."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.config.base import ParallelConfig
+    from repro_torch.models.layers import apply_rope, embed_tokens, unembed
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import forward_hidden
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    kern = Model.create(cfg, ParallelConfig(attention_kernel="kernel"))
+    eager = Model.create(cfg, ParallelConfig(attention_kernel="eager")).mctx
+    B, plen = batch.shape
+    steps = MROPE_GRID["steps"]
+
+    def embed(tokens):
+        return embed_tokens(params["embed"], tokens, torch.bfloat16)
+
+    def eager_last(emb, pos):
+        x, _, _ = forward_hidden(params, cfg, eager,
+                                 {"embeds": emb, "positions": pos})
+        return unembed(params["embed"], x[:, -1:], cfg.tie_embeddings)
+    with torch.inference_mode():
+        emb, pos = embed(batch), grid_positions(B, plen, batch.device)
+        arange = torch.arange(plen, device=batch.device)[None, None] \
+            .expand(3, B, plen)
+        gen = torch.Generator(device=batch.device).manual_seed(5)
+        x = torch.randn(B, plen, 8, cfg.resolved_head_dim, generator=gen,
+                        device=batch.device).to(torch.bfloat16)
+        turned = apply_rope(x, pos, cfg.rope_theta, mrope=True)
+        want = torch.from_numpy(mrope_plain(
+            x.double().cpu().numpy(), pos.cpu().numpy(), cfg.rope_theta))
+        split_rel = _rel_l2(turned.cpu(), want)
+        rope_rel = _rel_l2(apply_rope(x, arange, cfg.rope_theta,
+                                      mrope=True).cpu(), want)
+        before = kernels.LAUNCHES["flash_attention"]
+        logits_k, cache = kern.prefill(
+            params, {"embeds": emb, "positions": pos}, plen + steps)
+        launches = kernels.LAUNCHES["flash_attention"] - before
+        logits_e = eager_last(emb, pos)
+        rope = eager_last(emb, arange)
+        finite = bool(torch.isfinite(logits_k).all())
+        decode_rel, tok = [], logits_k.argmax(-1)
+        for s in range(steps):
+            logits_d, cache = kern.decode(params, cache, tok, plen + s)
+            emb = torch.cat([emb, embed(tok)], 1)
+            pos = torch.cat([pos, torch.full((3, B, 1), plen + s,
+                                             device=pos.device)], 2)
+            decode_rel.append(_rel_l2(logits_d, eager_last(emb, pos)))
+            finite &= bool(torch.isfinite(logits_d).all())
+            tok = logits_d.argmax(-1)
+        del cache
+    out = {"grid": dict(MROPE_GRID), "k1_launches": launches,
+           "rope_rel_l2_vs_plain": split_rel,
+           "rope_positions_rel_l2_vs_plain": rope_rel,
+           "prefill_rel_l2_kernel_vs_eager": _rel_l2(logits_k, logits_e),
+           "logits_rel_l2_grid_vs_rope_positions": _rel_l2(logits_e, rope),
+           "decode_rel_l2": decode_rel, "finite": finite}
+    bad = []
+    if launches != cfg.num_layers:
+        bad.append(f"the grid prefill launched K1 {launches} times, not "
+                   f"{cfg.num_layers}")
+    if out["prefill_rel_l2_kernel_vs_eager"] > LOGITS_REL_L2:
+        bad.append(f"grid prefill: kernel path vs eager relative L2 "
+                   f"{out['prefill_rel_l2_kernel_vs_eager']}")
+    if max(decode_rel) > LOGITS_REL_L2:
+        bad.append(f"grid decode vs forward relative L2 {decode_rel}")
+    if split_rel > BF16_REL_L2:
+        bad.append(f"M-RoPE on the card differs from the reference's "
+                   f"formula: relative L2 {split_rel}")
+    if rope_rel <= 10 * BF16_REL_L2:
+        bad.append(f"plain RoPE's positions turn q within {rope_rel} of "
+                   f"the grid's: the grid is not seen")
+    if not finite:
+        bad.append("non-finite logits in the grid batch")
+    out["failures"] = bad
+    return out
+
+
+def mla_dense_check(cfg, params, batch) -> dict:
+    """deepseek-v3's absorbed MLA decode against its prefill path on the
+    same weights, the dense layers alone (the MoE segment left empty):
+    ``decode_vs_forward`` over MLA_DENSE_STEPS greedy steps."""
+    from repro_torch.models.params import tree_map
+    fd = cfg.moe.first_dense_layers
+    dense = dataclasses.replace(cfg, num_layers=fd)
+    params = {**params, "moe": tree_map(lambda t: t[:0], params["moe"])}
+    check = decode_vs_forward(dense, params, batch, MLA_DENSE_STEPS, 0)
+    bad = []
+    if check["prefill_rel_l2_kernel_vs_eager"] > LOGITS_REL_L2:
+        bad.append(f"MLA prefill paths differ: "
+                   f"{check['prefill_rel_l2_kernel_vs_eager']}")
+    if check["decode_rel_l2_max"] > LOGITS_REL_L2:
+        bad.append(f"MLA decode vs forward relative L2 "
+                   f"{check['decode_rel_l2']}")
+    if not check["finite"]:
+        bad.append("non-finite logits in the dense MLA check")
+    return {"layers": fd, **check, "failures": bad}
+
+
+# checks a model of the zoo runs on the engine's weights after the common
+# ones
+EXTRA_CHECKS = {"qwen2-vl-72b": mrope_grid_check,
+                "deepseek-v3-671b": mla_dense_check}
+
+
 def serve_model(arch: str, layers, prompt: int, gen: int, held: int,
                 fp32_steps: int, k1: tuple) -> dict:
     """One architecture of the zoo through ServeEngine on the card (K1 on
@@ -2624,6 +2860,8 @@ def serve_model(arch: str, layers, prompt: int, gen: int, held: int,
                               fp32_steps)
     prefill_rel = check["prefill_rel_l2_kernel_vs_eager"]
     decode_rel = check["decode_rel_l2"][:held]
+    extra = EXTRA_CHECKS.get(arch)
+    extra = extra(cfg, params, batch) if extra else None
 
     # where the time goes: one profiled prefill and 4 decode steps
     n_prof = 4
@@ -2657,7 +2895,8 @@ def serve_model(arch: str, layers, prompt: int, gen: int, held: int,
            "decode_held": held, "decode_rel_l2_max": max(decode_rel,
                                                          default=None),
            "decode_gap_ratio_bound": DECODE_GAP_RATIO,
-           "check": check, "logits_rel_l2_bound": LOGITS_REL_L2,
+           "check": check, "extra_check": extra,
+           "logits_rel_l2_bound": LOGITS_REL_L2,
            "tokens_ok": bool(tokens_ok), "sample": r0.tokens[:8]}
     del engine, params
     gc.collect()
@@ -2687,6 +2926,185 @@ def serve_model(arch: str, layers, prompt: int, gen: int, held: int,
                    f"{check['decode_gap_to_fp32']} exceeds "
                    f"{DECODE_GAP_RATIO} x the bf16 forward's "
                    f"{check['forward_gap_to_fp32']}")
+    if extra:
+        bad += extra["failures"]
+    out["failures"] = bad
+    return out
+
+
+def whisper_frames(cfg, device) -> "torch.Tensor":
+    """WHISPER's requests: 30 s of frame embeddings each (WHISPER_CROSS_LEN
+    frames), drawn in fp32 from the seed and rounded to bf16."""
+    import numpy as np
+    import torch
+    from repro_torch.models.decode import WHISPER_CROSS_LEN
+    rng = np.random.default_rng(WHISPER["seed"])
+    frames = rng.standard_normal(
+        (WHISPER["requests"], WHISPER_CROSS_LEN, cfg.d_model), np.float32)
+    return torch.from_numpy(frames).to(device=device, dtype=torch.bfloat16)
+
+
+def whisper_generate(model, params, frames, steps: int) -> dict:
+    """``Model.prefill({"frames"})`` with a self cache of ``steps``
+    positions, then ``steps`` greedy decode steps from the start token:
+    the encoder output, the cache, the tokens fed (start token first), each
+    step's logits and the synced walls."""
+    import torch
+    B = frames.shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc, cache = model.prefill(params, {"frames": frames}, max_len=steps)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tok = torch.full((B, 1), WHISPER["start_token"], device=frames.device)
+    fed, logits = [tok], []
+    for s in range(steps):
+        out, cache = model.decode(params, cache, tok, s)
+        tok = out.argmax(-1)
+        fed.append(tok)
+        logits.append(out)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return {"enc": enc, "cache": cache, "tokens": torch.cat(fed, 1),
+            "logits": logits, "prefill_ms": (t1 - t0) * 1e3,
+            "decode_ms_per_tok": (t2 - t1) * 1e3 / steps}
+
+
+def whisper_checks(cfg, params, frames, run: dict) -> dict:
+    """On the counted run: the encoder through K1 against the eager
+    (chunked) encoder, the cross caches against the encoder output's
+    projections (einsum, another GEMM), and each decode step's logits
+    against an eager bf16 ``encdec_forward`` over the frames and the
+    tokens fed so far. Relative L2s."""
+    import torch
+    from repro_torch.config.base import ParallelConfig
+    from repro_torch.models.layers import unembed
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import encdec_forward, encode
+    eager = Model.create(cfg, ParallelConfig(attention_kernel="eager")).mctx
+    cross = run["cache"]["decoder"]["cross"]
+    xattn = params["decoder"]["xattn"]
+    decode_rel = []
+    for s, got in enumerate(run["logits"]):
+        x, _, _ = encdec_forward(params, cfg, eager, {
+            "frames": frames, "tokens": run["tokens"][:, :s + 1]})
+        decode_rel.append(_rel_l2(got, unembed(params["embed"], x[:, -1:],
+                                               cfg.tie_embeddings)))
+    return {
+        "encoder_rel_l2_kernel_vs_eager": _rel_l2(
+            run["enc"], encode(params, cfg, eager, frames)),
+        "cross_shape": {k: list(v.shape) for k, v in cross.items()},
+        "cross_rel_l2_max": max(
+            _rel_l2(cross[k][i], torch.einsum("bsd,dhk->bshk", run["enc"],
+                                              xattn[w][i]))
+            for k, w in (("k", "w_k"), ("v", "w_v"))
+            for i in range(cfg.num_layers)),
+        "decode_rel_l2": decode_rel,
+        "decode_rel_l2_max": max(decode_rel),
+        "finite": all(bool(torch.isfinite(lg).all())
+                      for lg in run["logits"] + [run["enc"]])}
+
+
+def serve_whisper() -> dict:
+    """whisper-small uncut on the card: seeded bf16 weights, WHISPER's
+    requests through ``Model.prefill({"frames"})`` (the encoder, through
+    K1) and ``Model.decode``; then its checks and one profiled prefill and
+    4 decode steps; frees the model before it returns."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.config.base import ParallelConfig, get_config
+    from repro_torch.models.decode import WHISPER_CROSS_LEN
+    from repro_torch.models.model import Model
+
+    cfg = get_config("whisper-small")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model.create(cfg, ParallelConfig(attention_kernel="kernel"))
+    gen = torch.Generator(device=model.device).manual_seed(WHISPER["seed"])
+    params = model.init(gen, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_gb = sum(p.numel() * p.element_size()
+                    for p in model.parameters()) / 1e9
+    draw = _leaf_draw(params)
+    frames = whisper_frames(cfg, model.device)
+    steps, B = WHISPER["gen"], WHISPER["requests"]
+    n_prof = 4
+    with torch.inference_mode():
+        whisper_generate(model, params, frames[:1], 2)          # warm-up
+        kernels.reset_launches()
+        run = whisper_generate(model, params, frames, steps)
+        launches = dict(kernels.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check = whisper_checks(cfg, params, frames, run)
+        tokens = run["tokens"][:, 1:].cpu()
+        prefill_ms, decode_ms = run["prefill_ms"], run["decode_ms_per_tok"]
+        del run
+        (_, cache), pre_dev, pre_kernels = profile_device(
+            lambda: model.prefill(params, {"frames": frames},
+                                  max_len=n_prof), attempts=3)
+        tok = torch.full((B, 1), WHISPER["start_token"], device=model.device)
+
+        def decode_steps():
+            for s in range(n_prof):
+                model.decode(params, cache, tok, s)
+        _, dec_dev, _ = profile_device(decode_steps)
+        del cache
+    dec_dev = ratio(dec_dev, n_prof)
+    counted = (launches["flash_attention"],
+               launches["flash_attention_windowed"])
+    out = {"arch": "whisper-small", "layers": cfg.num_layers,
+           "encoder_layers": cfg.num_encoder_layers,
+           "weight_gb": weight_gb, "init_s": init_s, "draw": draw,
+           "requests": B, "frames": WHISPER_CROSS_LEN, "gen": steps,
+           "start_token": WHISPER["start_token"],
+           "prefill_ms": prefill_ms, "decode_ms_per_tok": decode_ms,
+           "tokens_per_s": B * 1e3 / decode_ms,
+           "prefill_device_ms": pre_dev,
+           "prefill_flash_ms": device_ms(pre_kernels, K1_KERNEL),
+           "prefill_idle_share": less(1, ratio(pre_dev, prefill_ms)),
+           "decode_device_ms_per_step": dec_dev,
+           "decode_idle_share": less(1, ratio(dec_dev, decode_ms)),
+           "peak_allocated_gb": peak_gb, "launches": launches,
+           "launches_per_prefill": counted[0],
+           "windowed_launches_per_prefill": counted[1],
+           "launches_expected": list(WHISPER["k1"]), "check": check,
+           "logits_rel_l2_bound": LOGITS_REL_L2,
+           "sample": tokens[0, :8].tolist()}
+    del model, params, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    want_cross = [cfg.num_layers, B, WHISPER_CROSS_LEN, cfg.num_kv_heads,
+                  cfg.resolved_head_dim]
+    bad = []
+    if not draw["ok"]:
+        bad.append(f"the largest leaf's draw looks wrong: {draw}")
+    if counted != WHISPER["k1"]:
+        bad.append(f"flash_attention launched {counted[0]} times in one "
+                   f"prefill, {counted[1]} of them windowed; expected "
+                   f"{WHISPER['k1']}")
+    if not out["prefill_flash_ms"]:
+        bad.append(f"no device time under {K1_KERNEL!r} in the profiled "
+                   f"prefill: {sorted(pre_kernels)}")
+    if not (tokens.shape == (B, steps) and 0 <= tokens.min()
+            and tokens.max() < cfg.vocab_size):
+        bad.append(f"generated tokens out of range: {tokens}")
+    if not check["finite"]:
+        bad.append("non-finite encoder output or logits")
+    if check["encoder_rel_l2_kernel_vs_eager"] > LOGITS_REL_L2:
+        bad.append(f"the encoder through K1 differs from the eager one: "
+                   f"{check['encoder_rel_l2_kernel_vs_eager']}")
+    if any(v != want_cross for v in check["cross_shape"].values()):
+        bad.append(f"cross caches {check['cross_shape']}, not {want_cross}")
+    if check["cross_rel_l2_max"] > BF16_REL_L2:
+        bad.append(f"cross caches differ from the encoder output's "
+                   f"projections: {check['cross_rel_l2_max']}")
+    if check["decode_rel_l2_max"] > LOGITS_REL_L2:
+        bad.append(f"decode logits differ from the eager forward's: "
+                   f"{check['decode_rel_l2']}")
     out["failures"] = bad
     return out
 
@@ -2795,10 +3213,13 @@ def gemma_k1_rows(launches: dict) -> dict:
 
 
 def phase_models() -> dict:
-    """The decoder-only model zoo on the card: gemma3-27b uncut (K1's
-    windowed and global paths), mixtral-8x22b at full width on 8 layers
-    (MoE), zamba2-7b (Mamba2 + the shared attention block) and xlstm-350m
-    uncut; then K1 at gemma3's two shapes."""
+    """The model zoo on the card: gemma3-27b uncut (K1's windowed and
+    global paths), mixtral-8x22b at full width on 8 layers (MoE), zamba2-7b
+    (Mamba2 + the shared attention block) and xlstm-350m uncut,
+    qwen2-vl-72b at full width on 28 layers (M-RoPE), deepseek-v3 at full
+    width on 3 dense + 2 MoE layers (MLA), whisper-small uncut (the
+    encoder-decoder, its encoder through K1); then K1 at gemma3's two
+    shapes."""
     import torch
     gc.collect()
     torch.cuda.empty_cache()
@@ -2806,7 +3227,7 @@ def phase_models() -> dict:
     if start > MODELS_START_BYTES:
         raise AssertionError(f"{start / 1e9:.2f} GB still allocated on the "
                              f"card before gemma3-27b's weights are drawn")
-    runs = [serve_model(*m) for m in MODELS]
+    runs = [serve_model(*m) for m in MODELS] + [serve_whisper()]
     gemma = runs[0]
     k1 = gemma_k1_rows({
         "local": gemma["windowed_launches_per_prefill"],
@@ -2861,9 +3282,11 @@ def kernels_line(kern: dict, serve: dict, offload: dict, paged: dict,
     micro family's), agreement with its plain version, its times at the
     main path's shape, and its share of its bound (bound over device time,
     or over event time where the profiler recorded none). K1 has a row at
-    yi-9b's prefill shape and one at each of gemma3-27b's (the local
-    layers' window and the global layers), whose launches are the models
-    phase's counted gemma3 prefill's windowed and other K1 launches."""
+    yi-9b's prefill shape, one at whisper-small's encoder shape and one at
+    qwen2-vl-72b's prefill shape (launches: those models' counted runs),
+    and one at each of gemma3-27b's (the local layers' window and the
+    global layers), whose launches are the models phase's counted gemma3
+    prefill's windowed and other K1 launches."""
     yi = kern["yi_prefill_bf16"]
     k1_source = ("src/repro_torch/kernels/flash_attention/csrc/"
                  "flash_attention.cu")
@@ -2880,6 +3303,21 @@ def kernels_line(kern: dict, serve: dict, offload: dict, paged: dict,
         "plain_ms": yi["plain_ms"],
         "bound_ms": yi["bound_us"] / 1e3, "bound_by": yi["bound_by"],
         "library_ms": yi["library_ms"]}]
+    by_arch = {r["arch"]: r for r in models["runs"]}
+    for name, arch in (("whisper_encoder", "whisper-small"),
+                       ("qwen2vl_prefill", "qwen2-vl-72b")):
+        t = kern["model_shapes"][name]
+        rows.append({
+            "name": f"flash_attention/{name}", "route": "cuda",
+            "source": k1_source, "replaces": k1_replaces,
+            "launches": by_arch[arch]["launches"]["flash_attention"],
+            "matched": all(c["ok"] for c in kern["cases"]
+                           if c["shape"] == t["shape"]),
+            "max_abs_err": t["max_abs_err"], "shape": t["shape"],
+            "ms": t["kernel_ms"], **_device_cols(t),
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_us"] / 1e3, "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     for shape, t in models["gemma_k1"].items():
         rows.append({
             "name": f"flash_attention/gemma3_{shape}", "route": "cuda",

@@ -2,7 +2,8 @@
 registry.
 
 A copy of the reference's ``repro/config/base.py`` (model configs, the
-registry, ``ShapeConfig``, ``ParallelConfig``, ``RunConfig``), kept here so
+registry, ``ShapeConfig`` and the four assigned shapes in ``SHAPES``,
+``ParallelConfig``, ``RunConfig``), kept here so
 the port imports nothing from ``repro``. Configs are frozen dataclasses.
 
 ``ParallelConfig.attention_kernel`` selects the prefill attention path:
@@ -216,6 +217,18 @@ class ShapeConfig:
     global_batch: int
     kind: str              # train | prefill | decode
 
+    def reduced(self) -> "ShapeConfig":
+        return ShapeConfig(self.name, min(self.seq_len, 64),
+                           min(self.global_batch, 2), self.kind)
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
 
 # --------------------------------------------------------------------------
 # Parallelism / run configuration
@@ -287,6 +300,10 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
 
 
 def list_archs() -> list[str]:

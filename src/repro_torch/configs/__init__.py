@@ -1,8 +1,6 @@
 """Architecture registry. Importing this package registers the ported archs.
 
-The seven decoder-only architectures of the reference are registered;
-whisper (encoder-decoder) and qwen2-vl (M-RoPE) arrive with the slice that
-ports them.
+All ten architectures of the reference are registered, in its order.
 """
 
 from repro_torch.configs import (  # noqa: F401
@@ -12,7 +10,9 @@ from repro_torch.configs import (  # noqa: F401
     qwen15_110b,
     deepseek_v3_671b,
     mixtral_8x22b,
+    whisper_small,
     zamba2_7b,
+    qwen2_vl_72b,
     xlstm_350m,
 )
 

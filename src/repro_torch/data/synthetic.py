@@ -6,8 +6,10 @@ stream, so training curves are comparable across runs, restarts and the two
 packages. ``PrefetchLoader`` builds batches on a background thread into
 pinned host memory and copies them to the card asynchronously
 (``non_blocking=True``), keeping the copy off the critical path (the
-paper's §5.2 lesson). The encoder-decoder and embedding frontends come with
-the slices that port those models.
+paper's §5.2 lesson). For whisper a batch also holds ``frames``, and for
+the stub vision and audio frontends ``embeds`` in place of tokens (qwen2-vl
+with M-RoPE ``positions``), drawn in fp32 by the reference's numpy
+generator and rounded to bf16, so they equal the reference's bit for bit.
 """
 
 from __future__ import annotations
@@ -31,22 +33,39 @@ def _mix(x: np.ndarray) -> np.ndarray:
 
 def synthetic_batch(cfg: ModelConfig, shape: ShapeConfig, step: int,
                     seed: int = 0) -> dict:
-    """Deterministic batch for (cfg, shape, step): int32 CPU tensors
-    ``tokens`` and ``labels`` (B, S). Structured so next-token prediction is
-    learnable (tokens follow a mixed-congruential pattern)."""
-    if cfg.encoder_decoder or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: synthetic frames/embeddings come with the slice "
-            f"that ports its frontend")
+    """Deterministic batch for (cfg, shape, step) of CPU tensors: int32
+    ``tokens`` and ``labels`` (B, S); whisper adds bf16 ``frames`` (B, S,
+    d); a vision or audio frontend takes bf16 ``embeds`` (B, S, d) in
+    place of tokens, vision int32 ``positions`` (3, B, S) too. Structured
+    so next-token prediction is learnable (tokens follow a
+    mixed-congruential pattern)."""
     B, S = shape.global_batch, shape.seq_len
     base = np.arange(B * (S + 1), dtype=np.uint64).reshape(B, S + 1)
     base += np.uint64(step * 1000003 + seed * 7919)
     # markov-ish stream: next token depends on position bucket
     stream = (_mix(base // np.uint64(4)) % np.uint64(cfg.vocab_size)
               ).astype(np.int32)
-    return {"tokens": torch.from_numpy(np.ascontiguousarray(stream[:, :S])),
-            "labels": torch.from_numpy(np.ascontiguousarray(
-                stream[:, 1:S + 1]))}
+
+    def ints(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    def drawn():
+        # fp32 draws rounded to nearest even, as the reference's
+        # jnp.asarray(a, jnp.bfloat16) rounds them
+        rng = np.random.default_rng(step + seed)
+        return torch.from_numpy(rng.standard_normal(
+            (B, S, cfg.d_model), np.float32)).to(torch.bfloat16)
+    labels = ints(stream[:, 1:S + 1])
+    if cfg.encoder_decoder:
+        return {"frames": drawn(), "tokens": ints(stream[:, :S]),
+                "labels": labels}
+    if cfg.frontend == "vision":
+        return {"embeds": drawn(), "positions": ints(np.broadcast_to(
+            np.arange(S, dtype=np.int32)[None, None], (3, B, S))),
+            "labels": labels}
+    if cfg.frontend == "audio":
+        return {"embeds": drawn(), "labels": labels}
+    return {"tokens": ints(stream[:, :S]), "labels": labels}
 
 
 class PrefetchLoader:

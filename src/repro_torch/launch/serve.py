@@ -116,7 +116,19 @@ class ServeEngine:
         whose summary lands in the metrics snapshot. ``slo`` optionally
         attaches an ``obs.SLOMonitor``: one latency observation per
         finished request (class "serve").
+
+        The engine serves token prompts, so an encoder-decoder config
+        (whisper) is refused here: its prefill takes frames, which no
+        request carries (the reference's engine fails later, with a
+        ``KeyError`` on ``frames``). Whisper runs through ``Model.prefill``
+        of ``{"frames": ...}`` and ``Model.decode``.
         """
+        if cfg.encoder_decoder:
+            raise ValueError(
+                f"{cfg.name} is an encoder-decoder model: ServeEngine "
+                f"serves token prompts and its prefill needs frames; run "
+                f"it through Model.prefill({{'frames': ...}}) and "
+                f"Model.decode")
         self.cfg = cfg
         self.tracer = tracer
         self.slo = slo

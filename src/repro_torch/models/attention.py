@@ -11,8 +11,12 @@ Decode uses single-token attention against a KV cache, which it updates in
 place. Scores, softmax and context are fp32 in every path, cast to the
 activation dtype at the end. MLA (deepseek-v3) prefills through chunked
 attention, as the reference does (its value head dim differs from its
-query head dim), and decodes in the absorbed latent form. Cross-attention
-comes with the slice that ports whisper.
+query head dim), and decodes in the absorbed latent form. Whisper's
+decoder attends to its encoder's output through cross-attention: in
+prefill through chunked attention (the flash kernel's gate wants as many
+keys as queries, as the reference's does), in decode against the cross
+K/V cached by prefill (``attn_decode_cross``). qwen2-vl turns q and k by
+M-RoPE (``cfg.mrope``: positions (3, B, S)).
 """
 
 from __future__ import annotations
@@ -115,6 +119,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def attention_specs(cfg: ModelConfig) -> dict:
+    """Self- or cross-attention projections (the same shapes)."""
     d, Hq, Hkv, dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                       cfg.resolved_head_dim)
     specs = {
@@ -142,10 +147,13 @@ def _out_proj(ctx: torch.Tensor, w_o: torch.Tensor) -> torch.Tensor:
     return ctx.flatten(-2) @ w_o.reshape(H * dh, d).to(ctx.dtype)
 
 
-def _project_qkv(p: dict, x: torch.Tensor):
+def _project_qkv(p: dict, x: torch.Tensor,
+                 x_kv: Optional[torch.Tensor] = None):
+    """q from ``x``, k and v from ``x_kv`` (default ``x``)."""
+    x_kv = x if x_kv is None else x_kv
     q = _proj_heads(x, p["w_q"])
-    k = _proj_heads(x, p["w_k"])
-    v = _proj_heads(x, p["w_v"])
+    k = _proj_heads(x_kv, p["w_k"])
+    v = _proj_heads(x_kv, p["w_v"])
     if "b_q" in p:
         q = q + p["b_q"].to(q.dtype)
         k = k + p["b_k"].to(k.dtype)
@@ -155,14 +163,20 @@ def _project_qkv(p: dict, x: torch.Tensor):
 
 def attn_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
                  cfg: ModelConfig, *, causal: bool = True, window: int = 0,
+                 use_rope: bool = True, x_kv: Optional[torch.Tensor] = None,
+                 kv_positions: Optional[torch.Tensor] = None,
                  q_chunk: int = 512, mctx=None) -> tuple[torch.Tensor, dict]:
-    """Full-sequence self-attention with rope (prefill), causal unless
-    ``causal=False``. Returns (out, kv) where kv holds the rope'd k/v for
-    cache construction. Without ``mctx`` it takes chunked attention, as the
-    reference does."""
-    q, k, v = _project_qkv(p, x)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    """Full-sequence attention (prefill), causal unless ``causal=False``:
+    self-attention, or cross-attention to ``x_kv`` (keys at
+    ``kv_positions``). q and k are turned by rope (M-RoPE where
+    ``cfg.mrope``) unless ``use_rope=False``. Returns (out, kv) where kv
+    holds the rope'd k/v for cache construction. Without ``mctx`` it takes
+    chunked attention, as the reference does."""
+    q, k, v = _project_qkv(p, x, x_kv)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
+        kp = positions if kv_positions is None else kv_positions
+        k = apply_rope(k, kp, cfg.rope_theta, cfg.mrope)
     if (mctx is not None
             and mctx.parallel.attention_kernel == "kernel"
             and q.shape[1] == k.shape[1]):
@@ -179,19 +193,23 @@ def attn_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
 
 
 def attn_decode(p: dict, x: torch.Tensor, pos: int, cache: dict,
-                cfg: ModelConfig, *, window: int = 0
+                cfg: ModelConfig, *, window: int = 0, use_rope: bool = True
                 ) -> tuple[torch.Tensor, dict]:
-    """One decode step with rope. x: (B, 1, d). cache: {k,v: (B, S_or_W,
-    Hkv, dh)}.
+    """One decode step. x: (B, 1, d). cache: {k,v: (B, S_or_W, Hkv, dh)}.
 
-    ``pos`` is the current absolute position. The new k/v are written into
-    ``cache`` in place (at ``pos``, or ``pos % window`` for ring caches) —
-    where the reference returns an updated copy — and ``cache`` is returned.
+    ``pos`` is the current absolute position: the rope position (every
+    M-RoPE axis at ``pos``, as in the reference) and the cache slot. The
+    new k/v are written into ``cache`` in place (at ``pos``, or ``pos %
+    window`` for ring caches) — where the reference returns an updated
+    copy — and ``cache`` is returned.
     """
     q, k_new, v_new = _project_qkv(p, x)
-    positions = torch.full((x.shape[0], 1), pos, device=x.device)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    if use_rope:
+        positions = torch.full((x.shape[0], 1), pos, device=x.device)
+        if cfg.mrope:
+            positions = positions.expand(3, *positions.shape)
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
+        k_new = apply_rope(k_new, positions, cfg.rope_theta, cfg.mrope)
     k_cache, v_cache = cache["k"], cache["v"]
     S = k_cache.shape[1]
     slot = pos % S if window > 0 else pos
@@ -202,6 +220,20 @@ def attn_decode(p: dict, x: torch.Tensor, pos: int, cache: dict,
         valid |= pos >= S                # ring: all valid once wrapped
     ctx = decode_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype), valid)
     return _out_proj(ctx, p["w_o"]), cache
+
+
+def attn_decode_cross(p: dict, x: torch.Tensor, cross_kv: dict,
+                      cfg: ModelConfig) -> torch.Tensor:
+    """Cross-attention decode step against the encoder's K/V, which
+    prefill cached (read only). x: (B, 1, d)."""
+    q = _proj_heads(x, p["w_q"])
+    if "b_q" in p:
+        q = q + p["b_q"].to(q.dtype)
+    S = cross_kv["k"].shape[1]
+    valid = torch.ones(S, dtype=torch.bool, device=x.device)
+    ctx = decode_attention(q, cross_kv["k"].to(q.dtype),
+                           cross_kv["v"].to(q.dtype), valid)
+    return _out_proj(ctx, p["w_o"])
 
 
 # --------------------------------------------------------------------------

@@ -5,6 +5,11 @@ Decode caches mirror the ``collect=True`` structure of the forward pass
 prefill output feeds decode directly. A decode step writes the new K/V
 (or latents) into the cache in place and copies each recurrent block's new
 state over its old one, so the cache it is given is the cache it returns.
+
+Whisper (encoder-decoder): ``prefill`` of ``{"frames"}`` runs the encoder
+and returns its output (not logits) with a zeroed self cache and each
+decoder layer's cross K/V of the encoder's output; ``decode_step`` then
+runs the decoder one token at a time, reading the cross cache only.
 """
 
 from __future__ import annotations
@@ -14,15 +19,19 @@ import torch.nn.functional as F
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models import kvcache
-from repro_torch.models.attention import attn_decode, mla_decode
+from repro_torch.models.attention import (_proj_heads, attn_decode,
+                                          attn_decode_cross, mla_decode)
 from repro_torch.models.context import MCtx
-from repro_torch.models.layers import embed_tokens, mlp_apply, rmsnorm, unembed
+from repro_torch.models.layers import (embed_tokens, mlp_apply, rmsnorm,
+                                       sinusoidal_pos_emb, unembed)
 from repro_torch.models.moe import moe_ffn
-from repro_torch.models.params import torch_dtype, tree_map
+from repro_torch.models.params import stack_specs, torch_dtype, tree_map
 from repro_torch.models.ssm import ssm_decode
-from repro_torch.models.transformer import (Seg, forward_hidden,
+from repro_torch.models.transformer import (Seg, encode, forward_hidden,
                                             layer_views, segment_plan)
 from repro_torch.models.xlstm import mlstm_decode, slstm_decode
+
+WHISPER_CROSS_LEN = 1500   # 30 s of audio at the whisper frame rate
 
 
 # --------------------------------------------------------------------------
@@ -31,7 +40,13 @@ from repro_torch.models.xlstm import mlstm_decode, slstm_decode
 
 
 def cache_specs(cfg: ModelConfig, mctx: MCtx, B: int, S: int) -> dict:
-    """ParamSpec tree for the decode cache of (cfg, batch B, max len S)."""
+    """ParamSpec tree for the decode cache of (cfg, batch B, max len S);
+    whisper's cross caches hold ``WHISPER_CROSS_LEN`` frames."""
+    if cfg.encoder_decoder:
+        layer = {"self": kvcache.attn_cache_specs(cfg, B, S, "act_seq"),
+                 "cross": kvcache.cross_cache_specs(cfg, B,
+                                                    WHISPER_CROSS_LEN)}
+        return {"decoder": stack_specs(layer, cfg.num_layers)}
     return {seg.name: kvcache.seg_cache_specs(cfg, seg, B, S,
                                               mctx.cache_seq_axis)
             for seg in segment_plan(cfg)}
@@ -156,7 +171,12 @@ def prefill(params, cfg: ModelConfig, mctx: MCtx, batch: dict,
     """Forward over the prompt; returns (last-token logits, caches).
 
     ``max_len`` sizes the decode cache buffers (0 -> prompt length; pass
-    prompt+max_new_tokens for serving)."""
+    prompt+max_new_tokens for serving). Whisper: see
+    ``_whisper_prefill``."""
+    if cfg.encoder_decoder:
+        return _whisper_prefill(params, cfg, mctx, batch,
+                                max_decode_len=max_len or 1024,
+                                q_chunk=q_chunk)
     x, caches, _ = forward_hidden(params, cfg, mctx, batch, collect=True,
                                   q_chunk=q_chunk)
     B, S = x.shape[:2]
@@ -166,17 +186,62 @@ def prefill(params, cfg: ModelConfig, mctx: MCtx, batch: dict,
     return logits, caches
 
 
+def _whisper_prefill(params, cfg: ModelConfig, mctx: MCtx, batch: dict,
+                     max_decode_len: int = 1024, q_chunk: int = 512):
+    """The encoder over ``batch["frames"]`` (B, S_enc, d). Returns (the
+    encoder output, caches): a zeroed self cache of ``max_decode_len``
+    positions and each decoder layer's cross K/V (B, S_enc, Hkv, dh), the
+    encoder output's projections (no bias, as in the reference)."""
+    enc_out = encode(params, cfg, mctx, batch["frames"], q_chunk=q_chunk)
+    B = enc_out.shape[0]
+    dec = params["decoder"]
+    cross = {name: torch.stack([_proj_heads(enc_out, w)
+                                for w in torch.unbind(dec["xattn"][key])])
+             for name, key in (("k", "w_k"), ("v", "w_v"))}
+    Hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    shape = (cfg.num_layers, B, max_decode_len, Hkv, dh)
+    dt = torch_dtype(cfg.dtype)
+    self_c = {"k": torch.zeros(shape, dtype=dt, device=enc_out.device),
+              "v": torch.zeros(shape, dtype=dt, device=enc_out.device)}
+    return enc_out, {"decoder": {"self": self_c, "cross": cross}}
+
+
+def _whisper_decode(params, cfg: ModelConfig, cache: dict, x: torch.Tensor,
+                    pos: int) -> torch.Tensor:
+    """One token through whisper's decoder: sinusoidal position, causal
+    self-attention against the self cache (written in place), then
+    cross-attention to the cached encoder K/V and the ungated MLP."""
+    dtype = x.dtype
+    x = x + sinusoidal_pos_emb(torch.full((1,), pos, device=x.device),
+                               cfg.d_model).to(dtype)
+    dec = cache["decoder"]
+    for lp, lc in zip(layer_views(params["decoder"], cfg.num_layers),
+                      layer_views(dec, cfg.num_layers)):
+        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        a, _ = attn_decode(lp["attn"], h, pos, lc["self"], cfg,
+                           use_rope=False)
+        x = x + a
+        hx = rmsnorm(x, lp["ln_x"], cfg.norm_eps)
+        x = x + attn_decode_cross(lp["xattn"], hx, lc["cross"], cfg)
+        x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps),
+                          gated=False)
+    return x
+
+
 def decode_step(params, cfg: ModelConfig, mctx: MCtx, cache: dict,
                 tokens: torch.Tensor, pos: int) -> tuple[torch.Tensor, dict]:
     """One token step. tokens: (B, 1) int; pos: position of the token.
 
     ``cache`` is updated in place and returned."""
     x = embed_tokens(params["embed"], tokens, torch_dtype(cfg.dtype))
-    shared = params.get("shared_attn")
-    for seg in segment_plan(cfg):
-        x, cache[seg.name] = seg_decode(params[seg.name], cache[seg.name], x,
-                                        pos, cfg, mctx, seg,
-                                        shared_attn=shared)
+    if cfg.encoder_decoder:
+        x = _whisper_decode(params, cfg, cache, x, pos)
+    else:
+        shared = params.get("shared_attn")
+        for seg in segment_plan(cfg):
+            x, cache[seg.name] = seg_decode(params[seg.name],
+                                            cache[seg.name], x, pos, cfg,
+                                            mctx, seg, shared_attn=shared)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg.tie_embeddings)
     return logits, cache

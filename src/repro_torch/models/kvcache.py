@@ -8,10 +8,10 @@ Caches are spec'd with the same ParamSpec machinery as weights. Cache kinds:
   * SSD state:        state (B, H, P, N) + conv tails
   * mLSTM state:      C (B, H, P, P), n, m + conv tail
   * sLSTM state:      h/c/n/m (B, H, P)
+  * cross attention:  k/v (B, S_enc, Hkv, dh)    the encoder's, read only
 
 ``seg_cache_specs`` gives one segment's stacked cache tree (the decode
-cache, and the empty cache of a segment of no layers). Cross-attention
-caches come with whisper.
+cache, and the empty cache of a segment of no layers).
 """
 
 from __future__ import annotations
@@ -78,6 +78,13 @@ def slstm_cache_specs(cfg: ModelConfig, B: int) -> dict:
     return {"h": _f32((B, H, P), ax), "c": _f32((B, H, P), ax),
             "n": _f32((B, H, P), ax),
             "m": _f32((B, H, P), ax)}
+
+
+def cross_cache_specs(cfg: ModelConfig, B: int, S_enc: int) -> dict:
+    Hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    ax = ("act_batch", "act_seq", "kv_heads", None)
+    return {"k": _model_dt(cfg, (B, S_enc, Hkv, dh), ax),
+            "v": _model_dt(cfg, (B, S_enc, Hkv, dh), ax)}
 
 
 def _attn_cache(cfg, B, S, seq_axis, window):

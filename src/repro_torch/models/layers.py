@@ -32,8 +32,10 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
 
 
 # --------------------------------------------------------------------------
-# Rotary position embeddings (M-RoPE comes with the qwen2-vl slice)
+# Rotary position embeddings (incl. M-RoPE for qwen2-vl)
 # --------------------------------------------------------------------------
+
+MROPE_SECTIONS = (16, 24, 24)   # qwen2-vl split of head_dim/2 across (t, h, w)
 
 
 @functools.lru_cache(maxsize=16)
@@ -54,12 +56,39 @@ def _rope_angles(positions: torch.Tensor, dim_half: int, theta: float
                                                       positions.device)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
-               ) -> torch.Tensor:
-    """x: (B, S, H, Dh). positions: (B, S). Split halves, not interleaved
-    pairs; angles and the rotation in fp32, cast back to x's dtype."""
+def mrope_sections(half: int) -> list[int]:
+    """``MROPE_SECTIONS`` rescaled to ``half`` frequencies in integer
+    arithmetic, the last section taking the remainder (16 -> 2, 3, 3)."""
+    total = sum(MROPE_SECTIONS)
+    secs = [s * half // total for s in MROPE_SECTIONS]
+    secs[-1] = half - sum(secs[:-1])
+    return secs
+
+
+def _mrope_angles(positions: torch.Tensor, half: int, theta: float
+                  ) -> torch.Tensor:
+    """positions: (3, B, S) -> fp32 angles (B, S, half): each section of
+    the frequencies turns with its own axis (t, h, w). The sections'
+    frequencies are RoPE's, cut in three, so equal rows give RoPE."""
+    freqs = _rope_freqs(half, theta, positions.device)
+    parts, off = [], 0
+    for row, sec in enumerate(mrope_sections(half)):
+        parts.append(positions[row][..., None].float()
+                     * freqs[off:off + sec])
+        off += sec
+    return torch.cat(parts, dim=-1)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope: bool = False) -> torch.Tensor:
+    """x: (B, S, H, Dh). positions: (B, S), or (3, B, S) with ``mrope``.
+    Split halves, not interleaved pairs; angles and the rotation in fp32,
+    cast back to x's dtype."""
     half = x.shape[-1] // 2
-    angles = _rope_angles(positions, half, theta)          # (B, S, half)
+    if mrope:
+        angles = _mrope_angles(positions, half, theta)     # (B, S, half)
+    else:
+        angles = _rope_angles(positions, half, theta)      # (B, S, half)
     cos = torch.cos(angles)[..., None, :]                  # (B, S, 1, half)
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]
@@ -67,25 +96,50 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     return out.to(x.dtype)
 
 
+def sinusoidal_pos_emb(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings, fp32. positions: (S,) ->
+    (S, d): sines then cosines of ``d // 2`` log-spaced frequencies, the
+    last of them 1e-4 (the divisor is ``half - 1``, as in the reference)."""
+    half = d // 2
+    freqs = np.exp(-np.log(10000.0) * np.arange(half, dtype=np.float32)
+                   / max(1, half - 1))
+    ang = positions[:, None].float() * torch.from_numpy(
+        np.asarray(freqs, np.float32)).to(positions.device)[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # --------------------------------------------------------------------------
 # MLPs
 # --------------------------------------------------------------------------
 
 
-def mlp_specs(d: int, d_ff: int) -> dict:
-    """Gated (SwiGLU) MLP; the ungated gelu MLP comes with whisper."""
+def mlp_specs(d: int, d_ff: int, gated: bool = True) -> dict:
+    """Gated (SwiGLU) MLP, or with ``gated=False`` whisper's gelu MLP with
+    biases."""
+    if gated:
+        return {
+            "w_gate": ParamSpec((d, d_ff), ("embed", "mlp")),
+            "w_up": ParamSpec((d, d_ff), ("embed", "mlp")),
+            "w_down": ParamSpec((d_ff, d), ("mlp", "embed")),
+        }
     return {
-        "w_gate": ParamSpec((d, d_ff), ("embed", "mlp")),
         "w_up": ParamSpec((d, d_ff), ("embed", "mlp")),
+        "b_up": ParamSpec((d_ff,), ("mlp",), init="zeros"),
         "w_down": ParamSpec((d_ff, d), ("mlp", "embed")),
+        "b_down": ParamSpec((d,), (None,), init="zeros"),
     }
 
 
-def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Gated MLP in the activation dtype, as the reference runs it."""
+def mlp_apply(p: dict, x: torch.Tensor, gated: bool = True) -> torch.Tensor:
+    """The MLP in the activation dtype, as the reference runs it; the
+    ungated one takes gelu's tanh approximation, ``jax.nn.gelu``'s
+    default."""
     dt = x.dtype
-    h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
-    return h @ p["w_down"].to(dt)
+    if gated:
+        h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+        return h @ p["w_down"].to(dt)
+    h = F.gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt), approximate="tanh")
+    return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
 
 
 # --------------------------------------------------------------------------

@@ -10,8 +10,11 @@ scans over a stack, the port loops over ``layer_views`` of it.
 Training (``loss_fn``) runs the same forward with ``collect=False`` (no
 stacked caches) and, under ``ParallelConfig.remat == "full"``, each block
 inside ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``).
-M-RoPE (qwen2-vl) and encoder-decoder models (whisper) come with the slice
-that ports them.
+qwen2-vl takes precomputed ``embeds`` in place of tokens and M-RoPE
+``positions`` (3, B, S); whisper is an encoder-decoder
+(``encdec_forward``): a bidirectional encoder over frame embeddings and a
+decoder with cross-attention to it, both ungated and without rope, with
+sinusoidal positions added to their inputs.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from repro_torch.models.attention import (attention_specs, attn_forward,
 from repro_torch.models.context import MCtx
 from repro_torch.models.layers import (chunked_ce_loss, embed_tokens,
                                        embedding_specs, mlp_apply, mlp_specs,
-                                       rmsnorm, rmsnorm_spec)
+                                       rmsnorm, rmsnorm_spec,
+                                       sinusoidal_pos_emb)
 from repro_torch.models.moe import moe_ffn, moe_specs
 from repro_torch.models.params import map_specs, stack_specs, torch_dtype
 from repro_torch.models.ssm import ssm_forward, ssm_specs
@@ -52,22 +56,9 @@ class Seg:
     window: int = 0
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for an architecture the port does not run yet, naming what
-    brings it."""
-    unported = {
-        "M-RoPE": cfg.mrope,
-        "encoder-decoder models": cfg.encoder_decoder,
-    }
-    missing = [what for what, hit in unported.items() if hit]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet; the slice "
-            f"that ports whisper and qwen2-vl brings them")
-
-
 def segment_plan(cfg: ModelConfig) -> list[Seg]:
-    check_supported(cfg)
+    """A decoder-only architecture's segments (whisper's encoder and
+    decoder stacks are ``model_specs``' own)."""
     if cfg.family == "hybrid":                      # zamba2
         n_groups = cfg.num_layers // cfg.attn_every
         tail = cfg.num_layers - n_groups * cfg.attn_every
@@ -108,16 +99,22 @@ def segment_plan(cfg: ModelConfig) -> list[Seg]:
 # --------------------------------------------------------------------------
 
 
-def attn_block_specs(cfg: ModelConfig, moe: bool = False) -> dict:
+def attn_block_specs(cfg: ModelConfig, moe: bool = False,
+                     cross: bool = False, gated: bool = True) -> dict:
+    """An attention block; ``cross`` adds cross-attention (``xattn``,
+    ``ln_x``: whisper's decoder), ``gated=False`` the ungated MLP."""
     d = cfg.d_model
     specs: dict[str, Any] = {"ln1": rmsnorm_spec(d)}
     specs["attn"] = (mla_specs(cfg) if cfg.attn_type == "mla"
                      else attention_specs(cfg))
+    if cross:
+        specs["ln_x"] = rmsnorm_spec(d)
+        specs["xattn"] = attention_specs(cfg)
     specs["ln2"] = rmsnorm_spec(d)
     if moe:
         specs["moe"] = moe_specs(cfg)
     else:
-        specs["mlp"] = mlp_specs(d, cfg.d_ff)
+        specs["mlp"] = mlp_specs(d, cfg.d_ff, gated=gated)
     return specs
 
 
@@ -167,6 +164,13 @@ def model_specs(cfg: ModelConfig) -> dict:
     """Full parameter spec tree for an architecture."""
     specs: dict[str, Any] = {"embed": embedding_specs(cfg),
                              "final_norm": rmsnorm_spec(cfg.d_model)}
+    if cfg.encoder_decoder:
+        specs["encoder"] = stack_specs(attn_block_specs(cfg, gated=False),
+                                       cfg.num_encoder_layers)
+        specs["enc_norm"] = rmsnorm_spec(cfg.d_model)
+        specs["decoder"] = stack_specs(
+            attn_block_specs(cfg, cross=True, gated=False), cfg.num_layers)
+        return specs
     for seg in segment_plan(cfg):
         specs[seg.name] = seg_specs(cfg, seg)
     if cfg.family == "hybrid":
@@ -201,20 +205,23 @@ def _zero_aux(x: torch.Tensor) -> torch.Tensor:
 
 
 def _attn_block_fwd(p, x, positions, cfg: ModelConfig, mctx: MCtx, *,
-                    window: int, moe: bool = False, q_chunk: int = 512):
+                    window: int, moe: bool = False, causal: bool = True,
+                    use_rope: bool = True, gated: bool = True,
+                    q_chunk: int = 512):
     """Returns (x, kv, aux)."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.attn_type == "mla":
         a, kv = mla_forward(p["attn"], h, positions, cfg, q_chunk=q_chunk)
     else:
-        a, kv = attn_forward(p["attn"], h, positions, cfg, window=window,
+        a, kv = attn_forward(p["attn"], h, positions, cfg, causal=causal,
+                             window=window, use_rope=use_rope,
                              q_chunk=q_chunk, mctx=mctx)
     x = x + a
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if moe:
         f, aux = moe_ffn(p["moe"], h2, cfg, mctx)
     else:
-        f, aux = mlp_apply(p["mlp"], h2), _zero_aux(x)
+        f, aux = mlp_apply(p["mlp"], h2, gated=gated), _zero_aux(x)
     return x + f, kv, aux
 
 
@@ -370,8 +377,29 @@ def _empty_caches(cfg: ModelConfig, seg: Seg, B: int, S: int, device):
 # --------------------------------------------------------------------------
 
 
-def _positions(B: int, S: int, device) -> torch.Tensor:
+def _input_hidden(params, cfg: ModelConfig, batch: dict,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The stub frontend's ``embeds`` where the batch has them, else the
+    tokens' embeddings."""
+    if cfg.frontend in ("vision", "audio") and "embeds" in batch:
+        return batch["embeds"].to(dtype)
+    return embed_tokens(params["embed"], batch["tokens"], dtype)
+
+
+def _arange_positions(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device)[None, :].expand(B, S)
+
+
+def _positions(cfg: ModelConfig, batch: dict, B: int, S: int, device
+               ) -> torch.Tensor:
+    """The batch's ``positions`` where it has them, else ``arange(S)`` for
+    every row (M-RoPE: in all three axes)."""
+    if "positions" in batch:
+        return batch["positions"].to(device)
+    pos = _arange_positions(B, S, device)
+    if cfg.mrope:
+        pos = pos[None].expand(3, B, S)
+    return pos
 
 
 def forward_hidden(params, cfg: ModelConfig, mctx: MCtx, batch: dict, *,
@@ -381,13 +409,15 @@ def forward_hidden(params, cfg: ModelConfig, mctx: MCtx, batch: dict, *,
     ``collect`` the caches are every segment's stacked caches, else None
     per segment; aux is the MoE load-balancing loss summed over layers.
 
-    Positions run ``arange(S)`` for every row and there is no padding mask,
-    as in the reference.
+    ``batch`` holds ``tokens`` (B, S), or for a vision or audio frontend
+    ``embeds`` (B, S, d), and optionally ``positions`` ((B, S), or (3, B,
+    S) for M-RoPE); without them positions run ``arange(S)`` for every
+    row. There is no padding mask, as in the reference.
     """
     plan = segment_plan(cfg)
-    x = embed_tokens(params["embed"], batch["tokens"], torch_dtype(cfg.dtype))
+    x = _input_hidden(params, cfg, batch, torch_dtype(cfg.dtype))
     B, S = x.shape[:2]
-    positions = _positions(B, S, x.device)
+    positions = _positions(cfg, batch, B, S, x.device)
     caches: dict[str, Optional[Any]] = {}
     aux = _zero_aux(x)
     shared = params.get("shared_attn")
@@ -401,18 +431,85 @@ def forward_hidden(params, cfg: ModelConfig, mctx: MCtx, batch: dict, *,
     return x, caches, aux
 
 
+def encode(params, cfg: ModelConfig, mctx: MCtx, frames: torch.Tensor, *,
+           remat: bool = False, q_chunk: int = 512) -> torch.Tensor:
+    """Whisper's encoder: ``frames`` (B, S_enc, d) plus sinusoidal
+    positions through the bidirectional, ungated blocks without rope (the
+    flash kernel's path under ``attention_kernel="kernel"``), then
+    ``enc_norm``."""
+    dtype = torch_dtype(cfg.dtype)
+    frames = frames.to(dtype)
+    B, S_enc = frames.shape[:2]
+    dev = frames.device
+    x = frames + sinusoidal_pos_emb(torch.arange(S_enc, device=dev),
+                                    cfg.d_model).to(dtype)
+    pos = _arange_positions(B, S_enc, dev)
+
+    def block(lp, x):
+        return _attn_block_fwd(lp, x, pos, cfg, mctx, window=0,
+                               causal=False, use_rope=False, gated=False,
+                               q_chunk=q_chunk)
+    for lp in layer_views(params["encoder"], cfg.num_encoder_layers):
+        x, _, _ = _apply(block, x, lp, collect=False, remat=remat)
+    return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def encdec_forward(params, cfg: ModelConfig, mctx: MCtx, batch: dict, *,
+                   collect: bool = False, remat: bool = False,
+                   q_chunk: int = 512):
+    """Whisper-style encoder-decoder. batch: frames (B, S_enc, d), tokens
+    (B, S_dec). Returns (hidden (B, S_dec, d), caches, aux 0): with
+    ``collect`` the decoder's stacked {self, cross} K/V, else None. The
+    decoder's attention takes chunked attention on every path, as the
+    reference's (which calls it without its mesh context)."""
+    enc_out = encode(params, cfg, mctx, batch["frames"], remat=remat,
+                     q_chunk=q_chunk)
+    dtype = torch_dtype(cfg.dtype)
+    tokens = batch["tokens"]
+    B, S_dec = tokens.shape
+    dev = enc_out.device
+    x = embed_tokens(params["embed"], tokens, dtype)
+    x = x + sinusoidal_pos_emb(torch.arange(S_dec, device=dev),
+                               cfg.d_model).to(dtype)
+    dec_pos = _arange_positions(B, S_dec, dev)
+    enc_pos = _arange_positions(B, enc_out.shape[1], dev)
+    zero = _zero_aux(x)
+
+    def block(lp, x):
+        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        a, kv = attn_forward(lp["attn"], h, dec_pos, cfg, causal=True,
+                             use_rope=False, q_chunk=q_chunk)
+        x = x + a
+        hx = rmsnorm(x, lp["ln_x"], cfg.norm_eps)
+        cx, xkv = attn_forward(lp["xattn"], hx, dec_pos, cfg, causal=False,
+                               use_rope=False, x_kv=enc_out,
+                               kv_positions=enc_pos, q_chunk=q_chunk)
+        x = x + cx
+        x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps),
+                          gated=False)
+        return x, {"self": kv, "cross": xkv}, zero
+    caches = []
+    for lp in layer_views(params["decoder"], cfg.num_layers):
+        x, c, _ = _apply(block, x, lp, collect=collect, remat=remat)
+        caches.append(c)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return x, (_stack(caches) if collect else None), zero
+
+
 def loss_fn(params, cfg: ModelConfig, mctx: MCtx, batch: dict,
             aux_coef: float = 0.001, q_chunk: int = 512):
-    """Mean next-token cross-entropy of ``batch`` ({tokens, labels}) plus
-    ``aux_coef`` times the MoE load-balancing loss, and its parts (aux is
-    0 without MoE, as in the reference)."""
+    """Mean next-token cross-entropy of ``batch`` ({tokens, labels}; for
+    whisper also frames, for a vision or audio frontend embeds in place of
+    tokens) plus ``aux_coef`` times the MoE load-balancing loss, and its
+    parts (aux is 0 without MoE, as in the reference)."""
     if mctx.parallel.attention_kernel == "kernel":
         raise ValueError("attention_kernel='kernel' has no backward pass "
                          "(neither has the reference's Pallas kernel); "
                          "training takes attention_kernel='eager'")
     remat = mctx.parallel.remat != "none"
-    x, _, aux = forward_hidden(params, cfg, mctx, batch, remat=remat,
-                               q_chunk=q_chunk)
+    forward = encdec_forward if cfg.encoder_decoder else forward_hidden
+    x, _, aux = forward(params, cfg, mctx, batch, remat=remat,
+                        q_chunk=q_chunk)
     ce = chunked_ce_loss(x, params["embed"], batch["labels"],
                          cfg.tie_embeddings)
     return ce + aux_coef * aux, {"ce": ce, "aux": aux}

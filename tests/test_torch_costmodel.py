@@ -238,7 +238,7 @@ def test_transfer_times_match_reference(system):
 
 def _configs(side):
     """Every architecture the reference registers, full and reduced, as
-    each package's ModelConfig (the port registers only what it runs)."""
+    each package's ModelConfig."""
     from repro.config.base import get_config, list_archs
     cfgs = []
     for arch in list_archs():

@@ -61,7 +61,9 @@ def _close(got: torch.Tensor, want, tol: float, what: str) -> None:
                                atol=tol, err_msg=what)
 
 
-@pytest.mark.parametrize("arch", DECODER_ARCHS + ["qwen1.5-110b"])
+@pytest.mark.parametrize("arch", DECODER_ARCHS + ["qwen1.5-110b",
+                                                  "whisper-small",
+                                                  "qwen2-vl-72b"])
 def test_config_copy_matches_reference(arch):
     for reduced in (False, True):
         want, got = jax_get_config(arch), get_config(arch)

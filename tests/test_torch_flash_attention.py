@@ -120,6 +120,8 @@ def test_mixed_devices_are_refused():
     (1, 4, 2, 200, 112, True, 0),         # zamba2's head dim
     (1, 4, 2, 200, 80, True, 64),         # no instantiation's head dim
     (1, 4, 4, 160, 112, False, 0),        # bidirectional (an encoder)
+    (4, 12, 12, 1500, 64, False, 0),      # whisper-small's encoder
+    (4, 64, 8, 1024, 128, True, 0),       # qwen2-vl-72b prefill
 ])
 def test_kernel_matches_plain_on_card(dtype, B, Hq, Hkv, S, d, causal,
                                       window):
@@ -206,6 +208,8 @@ def _model_layout(B, H, S, d, gen, pad=0, offset=0):
     *((1, 8, 2, 160, d, True, 0) for d in HEAD_DIMS),   # every head dim
     (1, 8, 2, 300, 112, True, 200),      # zamba2's head dim, windowed
     (2, 8, 8, 256, 80, False, 0),        # bidirectional, d between tiles
+    (4, 12, 12, 1500, 64, False, 0),     # whisper-small's encoder
+    (4, 64, 8, 1024, 128, True, 0),      # qwen2-vl-72b prefill
 ])
 def test_tensor_core_kernel_bf16_on_card(B, Hq, Hkv, S, d, causal, window):
     """The bf16 kernel (wgmma) on the model's (B, S, H, d) layout against

@@ -38,12 +38,14 @@ def test_port_imports_neither_jax_nor_repro():
                      "configs.qwen2_72b", "configs.qwen15_110b",
                      "configs.gemma3_27b", "configs.mixtral_8x22b",
                      "configs.deepseek_v3_671b", "configs.zamba2_7b",
-                     "configs.xlstm_350m"):
+                     "configs.xlstm_350m", "configs.whisper_small",
+                     "configs.qwen2_vl_72b", "launch.inputs"):
             assert "repro_torch." + name in names, name
         from repro_torch.configs import list_archs
         assert {{"gemma3-27b", "mixtral-8x22b", "deepseek-v3-671b",
                  "zamba2-7b", "xlstm-350m", "qwen2-72b", "qwen1.5-110b",
-                 "yi-9b"}} <= set(list_archs()), list_archs()
+                 "yi-9b", "whisper-small",
+                 "qwen2-vl-72b"}} == set(list_archs()), list_archs()
         print(len(names))
     """)
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True,

@@ -136,18 +136,3 @@ def test_prefill_and_decode_match_reference(kernel, dtype, window):
         _assert_tree_close({"logits": logits}, {"logits": jlogits},
                            tol_decode, f"decode step {s}")
     _assert_tree_close(cache, jcache, tol_cache, "decode cache")
-
-
-@pytest.mark.parametrize("change,named", [
-    (dict(mrope=True), "M-RoPE"),
-    (dict(encoder_decoder=True, num_encoder_layers=2), "encoder-decoder"),
-])
-def test_unported_architectures_raise(change, named):
-    """Every way the port cannot run a config yet is refused up front, by
-    the specs, the cache specs and the forward pass alike."""
-    cfg = dataclasses.replace(get_config("yi-9b").reduced(), **change)
-    m = Model.create(cfg, device="cpu")
-    for use in (lambda: m.specs, lambda: m.init_cache(1, 4),
-                lambda: m.prefill({}, {"tokens": torch.zeros(1, 4).long()})):
-        with pytest.raises(NotImplementedError, match=named):
-            use()

@@ -1,6 +1,7 @@
 """The port's ServeEngine and serve CLI over the model zoo, on the CPU.
 
-Each decoder-only architecture serves through ``python -m
+Each decoder-only architecture (qwen2-vl by tokens, with M-RoPE's equal
+position rows, as the reference's engine serves it) serves through ``python -m
 repro_torch.launch.serve --arch <name> --reduced --device cpu``; on the
 reference's weights the port's engine generates the reference engine's
 tokens (both cast their weights to bf16 and run fp32 activations, the
@@ -26,7 +27,7 @@ from repro_torch.launch import serve
 from repro_torch.models.params import params_from_jax, tree_map
 
 ARCHS = ["gemma3-27b", "mixtral-8x22b", "deepseek-v3-671b", "zamba2-7b",
-         "xlstm-350m", "qwen2-72b", "qwen1.5-110b"]
+         "xlstm-350m", "qwen2-72b", "qwen1.5-110b", "qwen2-vl-72b"]
 PROMPT_LENS, MAX_NEW = (20, 19, 17), 4
 
 
@@ -48,7 +49,7 @@ def test_cli_serves_arch_on_cpu(arch, capsys):
 
 @pytest.mark.parametrize("arch", ["gemma3-27b", "mixtral-8x22b",
                                   "deepseek-v3-671b", "zamba2-7b",
-                                  "xlstm-350m"])
+                                  "xlstm-350m", "qwen2-vl-72b"])
 def test_engine_tokens_match_reference(arch):
     overrides = dict(num_layers=8) if arch == "gemma3-27b" else {}
     jcfg = jax_get_config(arch).reduced(dtype="float32", **overrides)
