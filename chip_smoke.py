@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only heimdall       # probes, micro, apps, fit
     python3 chip_smoke.py --only models         # the model zoo
     python3 chip_smoke.py --only kernel         # K1's holds and timing
+    python3 chip_smoke.py --only serve,mesh,dryrun  # the mesh path, dry-run
 
 Phases, one JSON line each, in this order (the train phases come first,
 while the host has the most memory to pin):
@@ -72,6 +73,18 @@ while the host has the most memory to pin):
                  launch 48 times per prefill; the logits must be finite and
                  the kernel path's last-token logits must agree with the
                  eager path's on the same weights
+  mesh           the serve phase's yi-9b weights (views, no second copy) as
+                 DTensors on a one-rank NCCL mesh (make_host_mesh), K1 on
+                 the mesh path: the serve phase's 4 prompts prefilled and
+                 32 greedy decode steps through Model.prefill / decode;
+                 exactly 48 K1 launches a prefill, the tokens equal to the
+                 serve phase's, the prefill logits within LOGITS_REL_L2 of
+                 its kernel path's, every weight leaf a DTensor over the
+                 serve phase's storage; prefill and decode wall and device
+                 times beside the plain path's on the same weights (the
+                 difference is DTensor's host time on one rank), and the
+                 peak allocated bytes over one prefill of the dry-run's
+                 one-chip cell (4 x 1024, no decode room)
   serve_offload  the same engine, requests and seed with
                  offload_weights=True: the 17.66 GB of bf16 weights pinned
                  on the host (the phase refuses to start if MemAvailable
@@ -157,8 +170,9 @@ while the host has the most memory to pin):
                  exactly 62 K1 launches a prefill, 52 of them windowed (both
                  counted where K1 launches), and K1 device time > 0 in a
                  profiled prefill, the kernel path's prefill logits within
-                 relative L2 3e-2 of the eager path's, and each of 32 decode steps (the ring caches have
-                 wrapped) within 3e-2 of an eager full forward over the
+                 relative L2 3e-2 of the eager path's, and each of 8 held
+                 decode steps (the ring caches have wrapped; 32 are
+                 generated) within 3e-2 of an eager full forward over the
                  prompt and the tokens fed so far; mixtral-8x22b at full
                  width with 8 of its 56 layers (1024-token prompts, 8 K1
                  launches, all windowed, the prefill's dropped (token, slot)
@@ -169,7 +183,7 @@ while the host has the most memory to pin):
                  within 3e-2 of the bf16 forward); qwen2-vl-72b at full
                  width with 28 of its 80 layers (54.2 GB; served by tokens,
                  as the reference's engine does: 1024-token prompts, 28 K1
-                 launches a prefill, 32 decode steps within 3e-2 of the
+                 launches a prefill, 8 held decode steps within 3e-2 of the
                  eager forward), then its M-RoPE grid batch (the prompt's
                  token embeddings with a 24 x 24 image grid of (t, h, w)
                  positions) through K1 against the eager path, 4 decode
@@ -199,6 +213,24 @@ while the host has the most memory to pin):
                  computes the same attention (the window as a mask: cuDNN,
                  memory-efficient with GQA or on expanded K/V, math; each
                  tried, held and timed) and the bound of the unmasked work
+  dryrun         python -m repro_torch.launch.dryrun in subprocesses, all
+                 at once, after every timed phase (its processes load the
+                 host's cores), on the fake 16x16 production mesh (a fake
+                 process group of 256 ranks, no traffic): yi-9b decode_32k,
+                 yi-9b train_4k (FSDP, one microbatch) and mixtral-8x22b
+                 prefill_32k (which must reach the MoE tensor-parallel
+                 body); each record ok, its
+                 per-chip parameter bytes equal to what spec_for gives,
+                 walker FLOPs > 0, a bottleneck of the three, train_4k's
+                 MODEL/walker FLOP ratio in the reference's 0.03-1.6; then
+                 the one-rank cell of yi-9b's served prefill (4 x 1024,
+                 K1, bf16): its predicted peak bytes within
+                 DRYRUN_PEAK_TOL of the mesh phase's measured peak, and its
+                 walker FLOPs and bytes through a ChipSpec of the card's
+                 own rates (the best bf16 torch.matmul rate at the
+                 prefill's GEMM shapes, a device copy's rate) against the
+                 measured prefill device time: the roofline fraction
+                 (printed, not held)
   kernels       every ported kernel (K1-K7, K1 again at whisper-small's
                  encoder, qwen2-vl-72b's prefill and gemma3-27b's two
                  shapes, then the probes P1-P4) with its
@@ -356,11 +388,11 @@ OVERLAP_ROWS = 16384
 # chunked attention, as in the reference) and its MoE decode is not held
 # against a forward, for mixtral's reason: its MLA decode is held instead,
 # on the dense layers alone (MLA_DENSE_STEPS).
-MODELS = [("gemma3-27b", None, 2048, 32, 32, 0, (62, 52)),
+MODELS = [("gemma3-27b", None, 2048, 32, 8, 0, (62, 52)),
           ("mixtral-8x22b", 8, 1024, 16, 0, 0, (8, 8)),
           ("zamba2-7b", None, 1024, 16, 0, 8, (0, 0)),
           ("xlstm-350m", None, 1024, 16, 8, 8, (0, 0)),
-          ("qwen2-vl-72b", 28, 1024, 32, 32, 0, (28, 0)),
+          ("qwen2-vl-72b", 28, 1024, 32, 8, 0, (28, 0)),
           ("deepseek-v3-671b", 5, 1024, 16, 0, 0, (0, 0))]
 # whisper-small uncut through Model.prefill({"frames"}) and Model.decode
 # (the engine serves token prompts): 4 requests of 1500 frames (30 s of
@@ -396,6 +428,20 @@ MLA_DENSE_STEPS = 8
 DECODE_GAP_RATIO = 1.25
 # device memory allowed in use before gemma3's 56.84 GB are drawn
 MODELS_START_BYTES = 1e9
+# The dryrun phase: production-mesh cells (one serve, one train with FSDP,
+# one through the MoE tensor-parallel body), each in its own process, with
+# any extra flags; the one-chip cell's predicted peak is held within this
+# fraction of the measured one; the train cell's MODEL/walker FLOP ratio
+# within the reference's bounds (tests/test_roofline.py). The train cell
+# takes one microbatch: the reference's plan (8 of 2 sequences a data
+# shard) traced in 193-262 s on the H100 machine's host, the script's
+# largest single wait.
+DRYRUN_CELLS = [("yi-9b", "decode_32k", ()),
+                ("yi-9b", "train_4k", ("--microbatches", "1")),
+                ("mixtral-8x22b", "prefill_32k", ())]
+DRYRUN_PEAK_TOL = 0.25
+DRYRUN_TRAIN_RATIO = (0.03, 1.6)
+DRYRUN_TIMEOUT_S = 420
 
 
 
@@ -1314,11 +1360,8 @@ def phase_serve() -> dict:
 
     # The same batch once more through the kernel path (prefill and one
     # decode step, logits kept) and through the eager path, same weights.
-    plen = max(len(r.prompt) for r in reqs)
-    batch = np.zeros((N_REQUESTS, plen), np.int64)
-    for i, r in enumerate(reqs):
-        batch[i, plen - len(r.prompt):] = r.prompt
-    batch = {"tokens": torch.from_numpy(batch).cuda()}
+    batch = _left_pad_batch(reqs, "cuda")
+    plen = batch["tokens"].shape[1]
     params = engine.model.params
     eager = Model.create(cfg, ParallelConfig(attention_kernel="eager"))
     with torch.inference_mode():
@@ -1369,6 +1412,8 @@ def phase_serve() -> dict:
            "sample": r0.tokens[:8]}
     emit(out)
     out["tokens"] = toks                 # the serve_offload phase's reference
+    # the mesh phase's weights (views, no second copy) and reference logits
+    out["params"], out["prefill_logits"] = params, logits_k
     if not pre_flash:           # None: the profiler recorded nothing
         raise AssertionError(f"no device time under a kernel named "
                              f"{K1_KERNEL!r} in the profiled prefill: "
@@ -1377,6 +1422,359 @@ def phase_serve() -> dict:
         raise AssertionError(f"kernel-path logits differ from the eager "
                              f"path's: relative L2 {rel_l2} > "
                              f"{LOGITS_REL_L2}")
+    return out
+
+
+def _left_pad_batch(reqs, device) -> dict:
+    """The engine's left-padded prompt batch."""
+    import numpy as np
+    import torch
+    plen = max(len(r.prompt) for r in reqs)
+    toks = np.zeros((len(reqs), plen), np.int64)
+    for i, r in enumerate(reqs):
+        toks[i, plen - len(r.prompt):] = r.prompt
+    return {"tokens": torch.from_numpy(toks).to(device)}
+
+
+def _whole(t):
+    """A DTensor's whole value (a plain tensor as it is)."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def greedy_run(model, params, batch: dict, gen: int) -> dict:
+    """The engine's greedy loop on ``model``: prefill with room for ``gen``
+    tokens, then ``gen`` decode steps; wall times, tokens, first logits."""
+    import torch
+    plen = batch["tokens"].shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, plen + gen)
+    first = _whole(logits)
+    tok = torch.argmax(first, dim=-1)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    outs, steps = [], []
+    for s in range(gen):
+        ts = time.perf_counter()
+        logits, cache = model.decode(params, cache, tok, plen + s)
+        tok = torch.argmax(_whole(logits), dim=-1)
+        outs.append(tok.cpu().numpy()[:, 0])
+        steps.append(time.perf_counter() - ts)
+    steps.sort()
+    return {"prefill_ms": prefill_ms, "logits": first, "tokens": outs,
+            "decode_ms_per_tok": sum(steps) * 1e3 / gen,
+            "decode_step_median_ms": steps[len(steps) // 2] * 1e3}
+
+
+def phase_mesh(serve=None) -> dict:
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch import kernels
+    from repro_torch.config.base import ParallelConfig, get_config
+    from repro_torch.launch.mesh import local_process_group, make_host_mesh
+    from repro_torch.launch.serve import ServeEngine, make_requests
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import tree_flatten
+
+    cfg = get_config("yi-9b")                       # full width
+    reqs = make_requests(cfg, N_REQUESTS, PROMPT, GEN)
+    batch = _left_pad_batch(reqs, "cuda")
+    if serve is None:               # alone: the serve phase's engine again
+        engine = ServeEngine(cfg)
+        ref_tokens = np.array([r.tokens for r in engine.serve(reqs)])
+        params = engine.model.params
+        with torch.inference_mode():
+            ref_logits, _ = engine.model.prefill(
+                params, batch, batch["tokens"].shape[1] + 1)
+        del engine
+    else:
+        params, ref_tokens = serve["params"], serve["tokens"]
+        ref_logits = serve["prefill_logits"]
+    parallel = ParallelConfig(attention_kernel="kernel")
+    plain = Model.create(cfg, parallel)
+    with local_process_group("cuda"):
+        mesh = make_host_mesh()
+        model = Model.create(cfg, parallel, mesh=mesh)
+        model.set_params(params)
+        placed = dict(tree_flatten(model.params))
+        for path, leaf in tree_flatten(params):
+            d = placed[path]
+            if not (isinstance(d, DTensor) and d.device_mesh is mesh
+                    and d.to_local().data_ptr() == leaf.data_ptr()):
+                raise AssertionError(f"weight {path} is not a DTensor view "
+                                     f"of the serve phase's leaf")
+        mparams = model.params
+        with torch.inference_mode():
+            warm = {"tokens": batch["tokens"][:, -64:]}
+            greedy_run(plain, params, warm, 2)
+            greedy_run(model, mparams, warm, 2)
+            plain_run = greedy_run(plain, params, batch, GEN)
+            kernels.reset_launches()
+            mesh_run = greedy_run(model, mparams, batch, GEN)
+            launches = dict(kernels.LAUNCHES)
+            n_prof = 4
+            times = {}
+            for name, m, p in (("plain", plain, params),
+                               ("mesh", model, mparams)):
+                (_, cache), pre_dev, _ = profile_device(
+                    lambda: m.prefill(p, batch, PROMPT + n_prof),
+                    attempts=3)
+
+                def steps():
+                    tok = torch.zeros((N_REQUESTS, 1), dtype=torch.int64,
+                                      device="cuda")
+                    for s in range(n_prof):
+                        m.decode(p, cache, tok, PROMPT + s)
+                _, dec_dev, _ = profile_device(steps, attempts=3)
+                times[name] = (pre_dev, ratio(dec_dev, n_prof))
+                del cache
+            # the dry-run's one-chip cell: one prefill of the batch with no
+            # decode room, weights resident
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            logits, cache = model.prefill(mparams, batch)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            del logits, cache
+        del model, mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    toks = np.stack(mesh_run["tokens"], axis=1)
+    lm, lr = mesh_run["logits"].float(), ref_logits.float()
+    rel_l2 = ((lm - lr).norm() / lr.norm()).item()
+    out = {"phase": "mesh", "arch": cfg.name, "layers": cfg.num_layers,
+           "mesh": "1x1 (data, model), nccl", "requests": N_REQUESTS,
+           "prompt_len": batch["tokens"].shape[1], "gen": GEN,
+           "prefill_ms": mesh_run["prefill_ms"],
+           "plain_prefill_ms": plain_run["prefill_ms"],
+           "decode_ms_per_tok": mesh_run["decode_ms_per_tok"],
+           "plain_decode_ms_per_tok": plain_run["decode_ms_per_tok"],
+           "decode_step_median_ms": mesh_run["decode_step_median_ms"],
+           "plain_decode_step_median_ms":
+               plain_run["decode_step_median_ms"],
+           "prefill_device_ms": times["mesh"][0],
+           "plain_prefill_device_ms": times["plain"][0],
+           "decode_device_ms_per_step": times["mesh"][1],
+           "plain_decode_device_ms_per_step": times["plain"][1],
+           "launches": launches,
+           "launches_per_prefill": launches["flash_attention"],
+           "logits_rel_l2_vs_serve": rel_l2,
+           "tokens_equal_serve": bool((toks == ref_tokens).all()),
+           "weight_leaves_dtensor": len(placed),
+           "one_chip_prefill_peak_bytes": peak,
+           "one_chip_prefill_base_bytes": base}
+    emit(out)
+    if launches["flash_attention"] != cfg.num_layers:
+        raise AssertionError(f"flash_attention launched "
+                             f"{launches['flash_attention']} times in the "
+                             f"mesh prefill; expected {cfg.num_layers}")
+    if not out["tokens_equal_serve"]:
+        raise AssertionError(f"mesh tokens differ from the serve phase's: "
+                             f"{toks[:, :8]} vs {ref_tokens[:, :8]}")
+    if not (rel_l2 <= LOGITS_REL_L2):
+        raise AssertionError(f"mesh prefill logits: relative L2 {rel_l2} "
+                             f"from the serve phase's > {LOGITS_REL_L2}")
+    return out
+
+
+def dryrun_param_bytes(arch: str, rec: dict) -> int:
+    """Per-chip parameter bytes of a dry-run record's cell, from the specs
+    and spec_for alone: each leaf's elements over the product of the mesh
+    axes its spec shards it on, in the record's parameter dtype."""
+    import numpy as np
+    from repro_torch.config.base import ParallelConfig, get_config
+    from repro_torch.models.sharding import logical_rules, spec_axes, spec_for
+    from repro_torch.models.params import tree_flatten
+    from repro_torch.models.transformer import model_specs
+
+    mesh = {"data": 16, "model": 16}
+    rules = logical_rules(mesh, ParallelConfig(**rec["parallel"]))
+    specs = model_specs(get_config(arch), mesh)
+    total = 0
+    for _, s in tree_flatten(specs):
+        spec = spec_for(s.axes, rules, s.shape, mesh)
+        split = int(np.prod([mesh[a] for part in spec
+                             for a in spec_axes(part)] or [1]))
+        total += int(np.prod(s.shape)) // split * 2      # bf16
+    return total
+
+
+def card_chip_spec() -> "object":
+    """A ChipSpec of the card's own rates: the best bf16 torch.matmul rate
+    at yi-9b's prefill GEMM shapes (4 x 1024 tokens) and one device copy's
+    rate (bytes read and written)."""
+    import torch
+    from repro_torch.roofline import hw
+    M, d, ff, kv = N_REQUESTS * PROMPT, 4096, 11008, 512
+    best = 0.0
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for K, N in ((d, d), (d, kv), (d, ff), (ff, d)):
+        a = torch.randn(M, K, device="cuda", dtype=torch.bfloat16,
+                        generator=gen)
+        b = torch.randn(K, N, device="cuda", dtype=torch.bfloat16,
+                        generator=gen)
+        ms = cuda_ms(lambda: torch.matmul(a, b))
+        best = max(best, 2 * M * K * N / (ms * 1e-3))
+    x = torch.empty(2 ** 28, device="cuda", dtype=torch.bfloat16)
+    y = torch.empty_like(x)
+    ms = cuda_ms(lambda: y.copy_(x))
+    copy = 2 * x.numel() * 2 / (ms * 1e-3)
+    del a, b, x, y
+    return hw.ChipSpec(name=torch.cuda.get_device_name(0), peak_flops=best,
+                       hbm_bandwidth=copy, hbm_capacity=int(
+                           torch.cuda.get_device_properties(0).total_memory),
+                       ici_bandwidth=copy, ici_links=0, vmem_capacity=0)
+
+
+_DRYRUN: dict = {}
+
+
+def start_dryrun() -> None:
+    """Start every dry-run cell in its own process, all at once (fake
+    tensors: they need the host's cores, not the card). Their output goes
+    to files under build/dryrun/."""
+    import os
+    out_dir = ROOT / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    one = ["--arch", "yi-9b", "--shape", "prefill_32k", "--mesh-shape",
+           "1x1", "--batch", str(N_REQUESTS), "--seq", str(PROMPT),
+           "--attention-kernel", "kernel", "--tag", "one_chip"]
+    jobs = [(f"{a}_{s}", ["--arch", a, "--shape", s, *extra, "--tag",
+                          "smoke"])
+            for a, s, extra in DRYRUN_CELLS] + [("one_chip", one)]
+    _DRYRUN["t0"] = time.perf_counter()
+    _DRYRUN["jobs"] = jobs
+    _DRYRUN["procs"] = {}
+    for name, argv in jobs:
+        log = open(out_dir / f"{name}.log", "w")
+        _DRYRUN["procs"][name] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *argv],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT), log)
+
+
+def stop_dryrun() -> None:
+    """Stop any dry-run process still running."""
+    for p, log in _DRYRUN.get("procs", {}).values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+
+
+def phase_dryrun(mesh=None) -> dict:
+    from repro_torch.config.base import get_config, get_shape
+    from repro_torch.roofline.analysis import Roofline, model_flops_per_step
+
+    start_dryrun()
+    out_dir = ROOT / "build" / "dryrun"
+    jobs, procs, t0 = _DRYRUN["jobs"], _DRYRUN["procs"], _DRYRUN["t0"]
+    waited = time.perf_counter()
+    logs, walls = {}, {}
+    try:
+        for name, (p, log) in procs.items():
+            left = DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                p.wait(timeout=max(1.0, left))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"dryrun {name} still running after "
+                                     f"{DRYRUN_TIMEOUT_S} s")
+            walls[name] = time.perf_counter() - t0
+            log.flush()
+            logs[name] = (out_dir / f"{name}.log").read_text()
+    finally:
+        stop_dryrun()
+    procs = {name: p for name, (p, _) in procs.items()}
+    recs = {}
+    for (name, argv) in jobs:
+        a, s = argv[1], argv[3]
+        label = "1x1" if name == "one_chip" else "16x16"
+        tag = argv[-1]
+        path = out_dir / f"{a}_{s}_{label}_{tag}.json"
+        if procs[name].returncode != 0 or not path.exists():
+            raise AssertionError(f"dryrun {name} failed "
+                                 f"(rc {procs[name].returncode}):\n"
+                                 f"{logs.get(name, '')[-3000:]}")
+        recs[name] = json.loads(path.read_text())
+    cells = {}
+    for name, rec in recs.items():
+        if rec["status"] != "ok":
+            raise AssertionError(f"dryrun {name}: {rec['status']} "
+                                 f"{rec.get('error')}")
+        roof = rec["roofline"]
+        cells[name] = {"wall_s": walls[name], "trace_s": rec["lower_s"],
+                       "flops": roof["flops"], "hbm_bytes": roof["hbm_bytes"],
+                       "collective_bytes": roof["collective_bytes"],
+                       "collectives": rec["hlo_walk"]["collectives_by_kind"],
+                       "bottleneck": roof["bottleneck"],
+                       "flops_ratio": roof["flops_ratio"],
+                       "peak_bytes": rec["memory_analysis"][
+                           "peak_size_in_bytes"],
+                       "param_bytes_per_chip": rec["param_bytes_per_chip"],
+                       "moe_bodies": rec.get("moe_bodies"),
+                       "microbatches": rec["parallel"]["microbatches"]}
+        if name == "one_chip":
+            continue
+        arch = rec["arch"]
+        want = dryrun_param_bytes(arch, rec)
+        if rec["param_bytes_per_chip"] != want:
+            raise AssertionError(f"dryrun {name}: per-chip parameter bytes "
+                                 f"{rec['param_bytes_per_chip']} != "
+                                 f"{want} from spec_for")
+        if not roof["flops"] > 0 or roof["bottleneck"] not in (
+                "compute", "memory", "collective"):
+            raise AssertionError(f"dryrun {name}: {roof}")
+        if rec["shape"] == "train_4k" and not (
+                DRYRUN_TRAIN_RATIO[0] <= roof["flops_ratio"]
+                <= DRYRUN_TRAIN_RATIO[1]):
+            raise AssertionError(f"dryrun {name}: MODEL/walker FLOPs "
+                                 f"{roof['flops_ratio']}")
+    if not (recs["mixtral-8x22b_prefill_32k"].get("moe_bodies") or {}).get(
+            "tp"):
+        raise AssertionError("mixtral-8x22b prefill_32k did not reach the "
+                             "MoE tensor-parallel body")
+    # the one-chip prediction against the card
+    rec = recs["one_chip"]
+    out = {"phase": "dryrun", "mesh": "16x16 (fake, 256 ranks)",
+           "cells": cells, "wall_s": time.perf_counter() - t0,
+           "waited_s": time.perf_counter() - waited}
+    if mesh is not None:
+        chip = card_chip_spec()
+        cfg, shape = get_config("yi-9b"), get_shape("prefill_32k")
+        shape = dataclasses.replace(shape, global_batch=N_REQUESTS,
+                                    seq_len=PROMPT)
+        walk = rec["hlo_walk"]
+        roof = Roofline.build(
+            arch="yi-9b", shape="prefill 4x1024", mesh="1x1",
+            flops=walk["flops"], hbm_bytes=walk["bytes"],
+            collective_bytes=walk["collective_bytes"],
+            model_flops=model_flops_per_step(cfg, shape, 1, False),
+            chip=chip)
+        measured_s = ratio(mesh["prefill_device_ms"], 1e3)
+        pred, meas = (rec["memory_analysis"]["peak_size_in_bytes"],
+                      mesh["one_chip_prefill_peak_bytes"])
+        out["one_chip"] = {
+            "predicted_peak_bytes": pred, "measured_peak_bytes": meas,
+            "peak_ratio": pred / meas,
+            "card_peak_bf16_flops": chip.peak_flops,
+            "card_copy_bytes_per_s": chip.hbm_bandwidth,
+            "t_compute_s": roof.t_compute, "t_memory_s": roof.t_memory,
+            "t_collective_s": roof.t_collective,
+            "roofline_step_s": roof.step_time,
+            "measured_device_s": measured_s,
+            "roofline_fraction": ratio(roof.step_time, measured_s),
+            "model_flops_fraction": ratio(
+                roof.model_flops / chip.peak_flops, measured_s),
+            "bottleneck": roof.bottleneck}
+    emit(out)
+    if mesh is not None and abs(out["one_chip"]["peak_ratio"] - 1) > \
+            DRYRUN_PEAK_TOL:
+        raise AssertionError(f"one-chip predicted peak {pred} vs measured "
+                             f"{meas}: outside {DRYRUN_PEAK_TOL}")
     return out
 
 
@@ -3276,9 +3674,10 @@ def _device_cols(t: dict) -> dict:
 
 def kernels_line(kern: dict, serve: dict, offload: dict, paged: dict,
                  pager: dict, flat: dict, compressed: dict,
-                 heimdall: dict, models: dict) -> dict:
+                 heimdall: dict, models: dict, mesh: dict) -> dict:
     """Every ported kernel: launches on its main paths (K1: the HBM and the
-    offloaded engines' counted runs and the models phase's; P1-P4: the
+    offloaded engines' counted runs, the mesh path's and the models
+    phase's; P1-P4: the
     micro family's), agreement with its plain version, its times at the
     main path's shape, and its share of its bound (bound over device time,
     or over event time where the profiler recorded none). K1 has a row at
@@ -3296,6 +3695,7 @@ def kernels_line(kern: dict, serve: dict, offload: dict, paged: dict,
         "source": k1_source, "replaces": k1_replaces,
         "launches": serve["launches"]["flash_attention"]
         + offload["launches"]["flash_attention"]
+        + mesh["launches"]["flash_attention"]
         + sum(r["launches"]["flash_attention"] for r in models["runs"]),
         "matched": all(c["ok"] for c in kern["cases"]),
         "max_abs_err": yi["max_abs_err"],
@@ -3411,6 +3811,9 @@ def phase_all() -> None:
     kern = phase_kernel()
     paged = phase_paged_kernels()
     serve = phase_serve()
+    mesh = phase_mesh(serve)
+    for key in ("params", "prefill_logits"):
+        del serve[key]
     offload = phase_serve_offload(serve.pop("tokens"))
     pager = phase_pager()
     phase_degrade()
@@ -3419,8 +3822,11 @@ def phase_all() -> None:
     phase_paged_sim()
     phase_kv_quant()
     models = phase_models()
+    # last: its processes load the host's cores, which the timed phases'
+    # host-bound loops would share
+    phase_dryrun(mesh)
     emit(kernels_line(kern, serve, offload, paged, pager, flat, compressed,
-                      heimdall, models))
+                      heimdall, models, mesh))
 
 
 @contextlib.contextmanager
@@ -3441,6 +3847,7 @@ def expandable_segments():
 
 
 ONLY = {"serve": phase_serve, "serve_offload": phase_serve_offload,
+        "mesh": phase_mesh, "dryrun": phase_dryrun,
         "pager": phase_pager, "paged_kernels": phase_paged_kernels,
         "degrade": phase_degrade, "disagg": phase_disagg,
         "heimdall": phase_heimdall, "models": phase_models,
@@ -3467,21 +3874,34 @@ def main(argv=None) -> int:
     smi = nvidia_smi()
     dev = phase_device(smi)
     phase_build()
-    if only:
-        tokens = None
-        for name in only:
-            if name == "serve_offload":
-                phase_serve_offload(tokens)
-            elif name == "serve":
-                tokens = phase_serve()["tokens"]
-            else:
-                ONLY[name]()
-    else:
-        phase_all()
+    try:
+        run_phases(only)
+    finally:
+        stop_dryrun()
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
                                  "count": dev["count"]}})
     return 0
+
+
+def run_phases(only: list) -> None:
+    if only:
+        tokens, serve, mesh = None, None, None
+        for name in only:
+            if name == "serve_offload":
+                phase_serve_offload(tokens)
+            elif name == "serve":
+                serve = phase_serve()
+                tokens = serve["tokens"]
+            elif name == "mesh":
+                mesh = phase_mesh(serve)
+                serve = None
+            elif name == "dryrun":
+                phase_dryrun(mesh)
+            else:
+                ONLY[name]()
+    else:
+        phase_all()
 
 
 if __name__ == "__main__":

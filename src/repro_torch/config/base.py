@@ -10,8 +10,10 @@ the port imports nothing from ``repro``. Configs are frozen dataclasses.
 ``"eager"`` (plain chunked attention, the reference's ``"xla"``) or
 ``"kernel"`` (the hand-written flash attention kernel, the reference's
 ``"pallas"``). ``remat``, ``microbatches`` and ``gradient_compression`` are
-read by the training step; the reference's sharding and offload fields
-come with the slice that ports the mesh.
+read by the training step; ``fsdp``, ``seq_parallel`` and
+``serve_2d_weights`` by the sharding rules (``models/sharding.py``), and only
+with a mesh. The other fields are carried as the reference carries them and
+read by nothing, in either package.
 """
 
 from __future__ import annotations
@@ -235,18 +237,30 @@ SHAPES: dict[str, ShapeConfig] = {
 # --------------------------------------------------------------------------
 
 ATTENTION_KERNELS = ("eager", "kernel")
-REMAT = ("none", "full")
+REMAT = ("none", "full", "dots")
 
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """How a step runs. The reference's sharding and offload fields join
-    with the slice that ports the mesh."""
+    """How a step is sharded and run, with the reference's fields and
+    defaults. Without a mesh none of the sharding fields changes what a
+    step computes. ``remat`` other than ``"none"`` checkpoints every block:
+    the reference reads only ``remat != "none"``, so ``"dots"`` acts as
+    ``"full"`` there and here."""
 
-    attention_kernel: str = "eager"  # eager | kernel
-    remat: str = "full"              # none | full (checkpoint every block)
-    microbatches: int = 1            # gradient-accumulation steps
+    fsdp: bool = True              # shard weights/opt-state over 'data'
+    remat: str = "full"            # none | full | dots (checkpoint blocks)
+    offload_optimizer: str = "auto"   # carried, read by nothing
+    offload_master: str = "auto"      # carried, read by nothing
+    scan_layers: bool = True          # carried, read by nothing
+    seq_shard_decode: bool = True     # carried, read by nothing
     gradient_compression: bool = False   # int8 cross-pod gradient mean
+    attention_kernel: str = "eager"  # eager | kernel
+    seq_parallel: bool = True      # activations seq-sharded over 'model'
+    microbatches: int = 1          # gradient-accumulation steps
+    serve_2d_weights: bool = False    # weights on both mesh axes
+    logits_fp32: bool = False         # carried, read by nothing
+    cast_params_bf16: bool = True     # carried, read by nothing
 
     def __post_init__(self):
         if self.attention_kernel not in ATTENTION_KERNELS:
@@ -309,3 +323,18 @@ def get_shape(name: str) -> ShapeConfig:
 def list_archs() -> list[str]:
     import repro_torch.configs  # noqa: F401
     return sorted(_REGISTRY)
+
+
+def cells(include_skips: bool = True):
+    """All (arch, shape, skip) cells, the reference's: long_500k is skipped
+    for an arch without sub-quadratic attention."""
+    out = []
+    for arch in list_archs():
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            skip = None
+            if shape.name == "long_500k" and not cfg.sub_quadratic:
+                skip = "skip(full-attn)"
+            if skip is None or include_skips:
+                out.append((arch, shape.name, skip))
+    return out

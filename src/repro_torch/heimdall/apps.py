@@ -5,10 +5,12 @@ and derived keys. These exercise the real framework stack: the
 reduced-config LM decode loop under different tier placements (Fig 21/23),
 the offload-split sweep (Table 5) beside the cost model, the vector-DB
 top-k workload (Fig 25-27), and KV get/set workloads (Fig 28-30). The tiny
-yi-9b is built with ``Model.create`` on one device (the reference's host
-mesh comes with the mesh slice). Every function takes ``device`` (default
-``cuda``; raises without one); a host tier is pinned host memory there and
-plain RAM on ``device="cpu"``.
+yi-9b is built with ``Model.create`` on the host mesh, as the reference's
+(``make_host_mesh`` over a one-rank process group where none exists, torn
+down after): its decode runs the mesh path, its weights are carried as
+plain tensors and placed on every call. Every function takes ``device``
+(default ``cuda``; raises without one); a host tier is pinned host memory
+there and plain RAM on ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.config.base import ParallelConfig, get_config
 from repro_torch.heimdall.harness import Row, place, time_fn
+from repro_torch.launch.mesh import local_process_group, make_host_mesh
 from repro_torch.models.context import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.models.params import (tree_flatten, tree_map,
@@ -25,12 +28,16 @@ from repro_torch.models.params import (tree_flatten, tree_map,
 
 
 def _tiny_model(device, arch: str = "yi-9b"):
+    """The reduced model on the host mesh (inside ``local_process_group``)
+    and its weights as plain tensors."""
     cfg = get_config(arch).reduced(num_layers=4, d_model=128, head_dim=32,
                                    d_ff=256)
-    model = Model.create(cfg, ParallelConfig(remat="none"), device=device)
+    mesh = make_host_mesh(device_type=device.type)
+    model = Model.create(cfg, ParallelConfig(remat="none"), device=device,
+                         mesh=mesh)
     gen = torch.Generator(device=device).manual_seed(0)
     params = model.init(gen, dtype=torch.bfloat16)
-    return cfg, model, params
+    return cfg, model, tree_map(lambda p: p.to_local(), params)
 
 
 def _decode_run(model, params_of_step, cache0, batch: int, pos0: int,
@@ -41,7 +48,7 @@ def _decode_run(model, params_of_step, cache0, batch: int, pos0: int,
     tok = torch.ones((batch, 1), dtype=torch.int32, device=device)
     for s in range(steps):
         logits, cache = model.decode(params_of_step(), cache, tok, pos0 + s)
-        tok = torch.argmax(logits, -1).to(torch.int32)
+        tok = torch.argmax(logits.full_tensor(), -1).to(torch.int32)
     return tok
 
 
@@ -51,6 +58,11 @@ def _decode_run(model, params_of_step, cache0, batch: int, pos0: int,
 def app_llm_inference(steps: int = 8, batch: int = 4,
                       prompt: int = 64, device=None) -> list:
     device = resolve_device(device)
+    with local_process_group(device.type):
+        return _llm_inference(steps, batch, prompt, device)
+
+
+def _llm_inference(steps, batch, prompt, device) -> list:
     cfg, model, params = _tiny_model(device)
     rows = []
     tokens = torch.ones((batch, prompt), dtype=torch.int32, device=device)
@@ -78,8 +90,13 @@ def app_llm_inference(steps: int = 8, batch: int = 4,
 
 
 def app_offload_sweep(steps: int = 4, batch: int = 2, device=None) -> list:
-    from repro_torch.core.costmodel import offload_sweep
     device = resolve_device(device)
+    with local_process_group(device.type):
+        return _offload_sweep(steps, batch, device)
+
+
+def _offload_sweep(steps, batch, device) -> list:
+    from repro_torch.core.costmodel import offload_sweep
     cfg, model, params = _tiny_model(device)
     rows = []
     flat = tree_flatten(params)

@@ -4,14 +4,22 @@ On CUDA tensors it launches the hand-written Hopper kernel
 (``csrc/flash_attention.cu``) on the current stream, or raises; on CPU
 tensors it runs the plain version in ``ref.py``. Model code selects it via
 ``ParallelConfig.attention_kernel == "kernel"``.
+
+The wrapper is the custom op ``repro_torch::flash_attention``: under
+``FakeTensorMode`` (the dry-run) its fake gives the output's shape and
+strides without touching memory, and its FLOP formula lets a FLOP counter
+(``torch.utils.flop_counter``, the roofline walker) see the kernel's work.
+The mesh path calls it on each rank's local heads.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import (count_launch, launch, load_library,
                                  use_kernel)
@@ -80,22 +88,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} strides {t.stride()} exceed int32")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    scale: float | None = None) -> torch.Tensor:
-    """q: (B, Hq, Sq, d); k, v: (B, Hkv, Skv, d) -> (B, Hq, Sq, d).
-
-    Any strides with a contiguous last dim are read in place; the output has
-    q's strides (so a (B, S, H, d) tensor viewed as (B, H, S, d) comes back
-    in the same layout).
-    """
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, window: int, scale: float
+                        ) -> torch.Tensor:
     if not use_kernel(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale)
     _check(q, k, v, window)
     B, Hq, Sq, d = q.shape
     _, Hkv, Skv, _ = k.shape
-    scale = d ** -0.5 if scale is None else scale
     out = torch.empty_like(q)
     launch(_library().repro_flash_attention_fwd, q.data_ptr(), k.data_ptr(),
            v.data_ptr(), out.data_ptr(), _DTYPES[q.dtype], B, Hq, Hkv, Sq,
@@ -106,6 +108,50 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window:
         count_launch("flash_attention_windowed")
     return out
+
+
+@_flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal, window, scale):
+    if q.device.type == "cuda":
+        _check(q, k, v, window)
+    # the kernel's output: torch.empty_like(q), q's strides
+    return torch.empty_like(q)
+
+
+@functools.lru_cache(maxsize=64)
+def attended_pairs(Sq: int, Skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask lets through: the work the kernel does
+    (it skips masked tiles; the count is exact, not rounded to tiles)."""
+    total = 0
+    for i in range(Sq) if (causal or window) else ():
+        hi = min(i, Skv - 1) if causal else Skv - 1
+        lo = max(0, i - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total if (causal or window) else Sq * Skv
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_attention_flops(q_shape, k_shape, v_shape, causal, window,
+                           scale, *args, **kwargs) -> int:
+    """2 * d FLOPs for each score and each context product, per attended
+    (query, key) pair and query head."""
+    B, Hq, Sq, d = q_shape
+    return 4 * B * Hq * d * attended_pairs(Sq, k_shape[2], causal, window)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: float | None = None) -> torch.Tensor:
+    """q: (B, Hq, Sq, d); k, v: (B, Hkv, Skv, d) -> (B, Hq, Sq, d).
+
+    Any strides with a contiguous last dim are read in place; on CUDA the
+    output has q's strides (so a (B, S, H, d) tensor viewed as (B, H, S, d)
+    comes back in the same layout).
+    """
+    use_kernel(q, k, v)          # raises for inputs on mixed devices
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    return _flash_attention_op(q, k, v, bool(causal), int(window),
+                               float(scale))
 
 
 __all__ = ["flash_attention", "flash_attention_ref"]

@@ -1,4 +1,9 @@
-"""make_batch(): a concrete random batch for every model input.
+"""input_specs() and make_batch(): stand-ins and concrete random batches
+for every model input.
+
+``input_specs`` gives fake tensors (no memory behind them) with the
+reference's shapes, dtypes and placements on the mesh in ``mctx``: the
+dry-run traces train, prefill and decode steps from them.
 
 The port of the reference's ``repro/launch/inputs.make_batch``, with the
 same numpy draws, so a batch for a seed equals the reference's (bf16 bit for
@@ -15,7 +20,44 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import ModelConfig, ShapeConfig
-from repro_torch.models.context import resolve_device
+from repro_torch.models.context import MCtx, resolve_device
+from repro_torch.models.params import abstract_leaf, torch_dtype
+from repro_torch.models.sharding import named_sharding
+
+
+def _sds(shape, dtype: str, mctx: MCtx, axes):
+    return abstract_leaf(shape, torch_dtype(dtype), named_sharding(
+        mctx.mesh, mctx.rules, axes, tuple(shape)))
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                mctx: MCtx) -> dict[str, Any]:
+    """Fake batch tensors for (arch, shape) under the mesh in mctx."""
+    B, S = shape.global_batch, shape.seq_len
+    bax = ("act_batch", "act_seq")
+
+    if shape.kind in ("train", "prefill"):
+        batch: dict[str, Any] = {}
+        if cfg.encoder_decoder:
+            batch["frames"] = _sds((B, S, cfg.d_model), "bfloat16",
+                                   mctx, (*bax, None))
+            batch["tokens"] = _sds((B, S), "int32", mctx, bax)
+        elif cfg.frontend == "vision":
+            batch["embeds"] = _sds((B, S, cfg.d_model), "bfloat16",
+                                   mctx, (*bax, None))
+            batch["positions"] = _sds((3, B, S), "int32",
+                                      mctx, (None, *bax))
+        elif cfg.frontend == "audio":
+            batch["embeds"] = _sds((B, S, cfg.d_model), "bfloat16",
+                                   mctx, (*bax, None))
+        else:
+            batch["tokens"] = _sds((B, S), "int32", mctx, bax)
+        if shape.kind == "train":
+            batch["labels"] = _sds((B, S), "int32", mctx, bax)
+        return batch
+
+    # decode: one new token against a seq_len cache
+    return {"tokens": _sds((B, 1), "int32", mctx, ("act_batch", None))}
 
 
 def make_batch(cfg: ModelConfig, shape: ShapeConfig, rng=None,

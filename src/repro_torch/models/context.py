@@ -1,14 +1,18 @@
-"""MCtx: the parallelism config, device and pod group threaded through
-model functions.
+"""MCtx: the mesh, parallelism config, device and pod group threaded
+through model functions.
 
-On one card there is no mesh, so the reference's sharding constraints
-(``MCtx.constrain``, ``constrain_kv``) have no counterpart here; they come
-with the slice that ports the mesh. ``pod_group`` is the counterpart of a
-``pod`` axis in the reference's mesh: the ``torch.distributed`` process
-group over which the training step averages compressed gradients, or
-None. ``stats``, where a caller sets it to a dict, collects counters a run
-asks for (``"moe_dropped"``: the (token, slot) pairs the MoE layers drop
-for want of capacity).
+``mesh`` is None by default: the model then runs on plain tensors on one
+device, and ``constrain`` / ``constrain_kv`` return what they are given.
+With a ``DeviceMesh`` the model holds its weights as DTensors placed by
+``rules`` (``models/sharding.logical_rules``) and redistributes its
+activations at the reference's constraint points (the mesh path,
+``models/tp.py``). ``pod_group`` is the counterpart of a ``pod`` axis in the
+reference's mesh: the ``torch.distributed`` process group over which the
+training step averages compressed gradients, or None; with a mesh that has
+a ``pod`` axis it is that axis's group. ``stats``, where a caller sets it
+to a dict, collects counters a run asks for (``"moe_dropped"``: the
+(token, slot) pairs the MoE layers drop for want of capacity; on a mesh,
+this rank's).
 """
 
 from __future__ import annotations
@@ -19,6 +23,9 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.config.base import ParallelConfig
+from repro_torch.launch.mesh import (DATA_AXIS, MODEL_AXIS, POD_AXIS,
+                                     mesh_shape)
+from repro_torch.models.sharding import constrain, logical_rules
 
 
 def resolve_device(device=None) -> torch.device:
@@ -43,7 +50,66 @@ class MCtx:
         default_factory=lambda: torch.device("cpu"))
     pod_group: Optional[Any] = None     # a ProcessGroup, or None
     stats: Optional[dict] = None        # counters a caller asks for
+    mesh: Optional[Any] = None          # a DeviceMesh, or None
+    seq_sharded_cache: bool = False     # long-context: KV seq over 'data'
+    manual_pod: bool = False            # inside a body manual over 'pod'
+    rules: Optional[dict] = None
+
+    def __post_init__(self):
+        if self.mesh is None:
+            return
+        if self.rules is None:
+            self.rules = logical_rules(self.mesh, self.parallel,
+                                       self.seq_sharded_cache)
+            if self.manual_pod:
+                self.rules = dict(self.rules)
+                self.rules["act_batch"] = tuple(
+                    a for a in self.rules["act_batch"] if a != POD_AXIS)
+        if (self.pod_group is None
+                and POD_AXIS in self.mesh.mesh_dim_names):
+            self.pod_group = self.mesh.get_group(POD_AXIS)
+
+    @property
+    def batch_axes(self) -> tuple[str, ...]:
+        if self.mesh is None:
+            return ()
+        axes = tuple(a for a in (POD_AXIS, DATA_AXIS)
+                     if a in self.mesh.mesh_dim_names)
+        if self.manual_pod:
+            axes = tuple(a for a in axes if a != POD_AXIS)
+        return axes
+
+    @property
+    def data_size(self) -> int:
+        return 1 if self.mesh is None else mesh_shape(self.mesh).get(
+            DATA_AXIS, 1)
+
+    @property
+    def model_size(self) -> int:
+        return 1 if self.mesh is None else mesh_shape(self.mesh).get(
+            MODEL_AXIS, 1)
+
+    def constrain(self, x, axes: tuple[Optional[str], ...]):
+        if self.mesh is None:
+            return x
+        return constrain(x, self.mesh, self.rules, axes)
 
     @property
     def cache_seq_axis(self) -> Optional[str]:
         return "act_cache_seq"
+
+    def constrain_kv(self, kv: Optional[dict], stacked: bool = False):
+        """Sharding constraints for per-layer cache leaves (``stacked``:
+        a leading layers dim)."""
+        if kv is None or self.mesh is None:
+            return kv
+        lead = ("layers",) if stacked else ()
+        out = {}
+        for k, v in kv.items():
+            if k in ("k", "v", "ckv", "k_rope"):
+                axes = lead + ("act_batch", "act_cache_seq") + (None,) * (
+                    v.dim() - 2 - len(lead))
+                out[k] = self.constrain(v, axes)
+            else:
+                out[k] = v
+        return out

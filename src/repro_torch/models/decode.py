@@ -10,15 +10,21 @@ Whisper (encoder-decoder): ``prefill`` of ``{"frames"}`` runs the encoder
 and returns its output (not logits) with a zeroed self cache and each
 decoder layer's cross K/V of the encoder's output; ``decode_step`` then
 runs the decoder one token at a time, reading the cross cache only.
+
+With a mesh the cache leaves are DTensors, sequence-sharded as the rules
+say (``act_cache_seq``), and the attention archs decode through
+``models/tp.attn_block_dec``; logits come back vocab-sharded
+(``act_vocab``).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.models import kvcache
+from repro_torch.models import kvcache, tp
 from repro_torch.models.attention import (_proj_heads, attn_decode,
                                           attn_decode_cross, mla_decode)
 from repro_torch.models.context import MCtx
@@ -58,6 +64,9 @@ def cache_specs(cfg: ModelConfig, mctx: MCtx, B: int, S: int) -> dict:
 
 
 def _attn_block_dec(p, x, pos, cache, cfg, mctx, *, window, moe=False):
+    if mctx.mesh is not None:
+        return tp.attn_block_dec(p, x, pos, cache, cfg, mctx, window=window,
+                                 moe=moe)
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.attn_type == "mla":
         a, _ = mla_decode(p["attn"], h, pos, cache, cfg)
@@ -158,10 +167,20 @@ def _pad_caches_to(caches, cfg: ModelConfig, mctx: MCtx, B: int,
         flat = [n for w in reversed(pads) for n in (0, w)]
         return F.pad(leaf, flat)
 
+    def pad_spec(leaf, spec):
+        if not isinstance(leaf, DTensor) or tuple(leaf.shape) == spec.shape:
+            return pad(leaf, spec.shape)
+        # a sharded sequence cannot be padded in place: gather, pad, and
+        # place the padded cache as the rules say for its new length
+        mesh = leaf.device_mesh
+        whole = leaf.redistribute(mesh, [Replicate()] * mesh.ndim)
+        padded = tp.map_local(lambda t: pad(t, spec.shape), whole)
+        return padded.redistribute(mesh, tp.act(mctx, spec.axes, spec.shape))
+
     def walk(c, t):
         if isinstance(c, dict):
             return {k: walk(c[k], t[k]) for k in c}
-        return pad(c, t.shape)
+        return pad_spec(c, t)
 
     return walk(caches, target)
 
@@ -182,7 +201,12 @@ def prefill(params, cfg: ModelConfig, mctx: MCtx, batch: dict,
     B, S = x.shape[:2]
     if max_len and max_len > S:
         caches = _pad_caches_to(caches, cfg, mctx, B, max_len)
-    logits = unembed(params["embed"], x[:, -1:], cfg.tie_embeddings)
+    if mctx.mesh is not None:
+        logits = tp.unembed(mctx, params["embed"], tp.last_token(mctx, x),
+                            cfg.tie_embeddings)
+    else:
+        logits = unembed(params["embed"], x[:, -1:], cfg.tie_embeddings)
+    logits = mctx.constrain(logits, ("act_batch", None, "act_vocab"))
     return logits, caches
 
 
@@ -233,6 +257,8 @@ def decode_step(params, cfg: ModelConfig, mctx: MCtx, cache: dict,
     """One token step. tokens: (B, 1) int; pos: position of the token.
 
     ``cache`` is updated in place and returned."""
+    if mctx.mesh is not None:
+        return _decode_step_mesh(params, cfg, mctx, cache, tokens, pos)
     x = embed_tokens(params["embed"], tokens, torch_dtype(cfg.dtype))
     if cfg.encoder_decoder:
         x = _whisper_decode(params, cfg, cache, x, pos)
@@ -244,4 +270,18 @@ def decode_step(params, cfg: ModelConfig, mctx: MCtx, cache: dict,
                                             mctx, seg, shared_attn=shared)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg.tie_embeddings)
+    return logits, cache
+
+
+def _decode_step_mesh(params, cfg: ModelConfig, mctx: MCtx, cache: dict,
+                      tokens, pos: int):
+    tp.check_mesh(cfg)
+    x = tp.embed(mctx, params["embed"]["tok"], tokens, torch_dtype(cfg.dtype))
+    x = mctx.constrain(x, ("act_batch", None, "act_embed"))
+    for seg in segment_plan(cfg):
+        x, cache[seg.name] = seg_decode(params[seg.name], cache[seg.name], x,
+                                        pos, cfg, mctx, seg)
+    x = tp.rms_norm(mctx, x, params["final_norm"], cfg.norm_eps)
+    logits = tp.unembed(mctx, params["embed"], x, cfg.tie_embeddings)
+    logits = mctx.constrain(logits, ("act_batch", None, "act_vocab"))
     return logits, cache

@@ -2,11 +2,11 @@
 
 from __future__ import annotations
 
-import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.config.base import ModelConfig
 from repro_torch.models.params import ParamSpec
@@ -38,15 +38,25 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
 MROPE_SECTIONS = (16, 24, 24)   # qwen2-vl split of head_dim/2 across (t, h, w)
 
 
-@functools.lru_cache(maxsize=16)
+_FREQS: dict = {}
+
+
 def _rope_freqs(dim_half: int, theta: float, device: torch.device
                 ) -> torch.Tensor:
     """The reference's fp32 inverse frequencies (computed in numpy, as it
     computes them), copied to ``device`` once: a copy from pageable host
-    memory on every call would synchronize the stream twice per layer."""
-    freqs = 1.0 / (theta ** (np.arange(0, dim_half, dtype=np.float32)
-                             / dim_half))
-    return torch.from_numpy(np.asarray(freqs, np.float32)).to(device)
+    memory on every call would synchronize the stream twice per layer. A
+    fake tensor (made under the dry-run's ``FakeTensorMode``) is not kept:
+    it would leak into later real calls."""
+    key = (dim_half, theta, device)
+    if key not in _FREQS:
+        freqs = 1.0 / (theta ** (np.arange(0, dim_half, dtype=np.float32)
+                                 / dim_half))
+        t = torch.from_numpy(np.asarray(freqs, np.float32)).to(device)
+        if isinstance(t, FakeTensor):
+            return t
+        _FREQS[key] = t
+    return _FREQS[key]
 
 
 def _rope_angles(positions: torch.Tensor, dim_half: int, theta: float

@@ -7,18 +7,30 @@ keys, so ``model.parameters()`` and ``model.to()`` see every leaf;
 The step functions take the tree explicitly, as the reference's do, so
 weights carried over from the reference (``params_from_jax``) can be
 passed in.
+
+With a mesh (``Model.create(..., mesh=...)``) every leaf is a DTensor
+placed by the sharding rules (``param_sharding``): ``init`` draws each
+leaf whole and keeps this rank's shard, ``set_params`` wraps a plain leaf
+around this rank's shard of it (on a one-rank mesh the tensor itself, no
+copy), and caches are DTensors too. ``abstract_params`` and
+``abstract_cache`` are the dry-run's fake trees.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.config.base import ModelConfig, ParallelConfig
 from repro_torch.models import params as pm
 from repro_torch.models.context import MCtx, resolve_device
 from repro_torch.models.decode import cache_specs, decode_step, prefill
-from repro_torch.models.transformer import model_specs
+from repro_torch.models.sharding import (distribute, local_shape,
+                                         named_sharding)
+from repro_torch.models.transformer import loss_fn, model_specs
 
 
 class Model(nn.Module):
@@ -32,16 +44,53 @@ class Model(nn.Module):
     @classmethod
     def create(cls, cfg: ModelConfig,
                parallel: ParallelConfig = ParallelConfig(),
-               device=None, pod_group=None) -> "Model":
+               device=None, pod_group=None, mesh=None,
+               seq_sharded_cache: bool = False) -> "Model":
         """A model on ``device`` (default ``cuda``; raises without one);
         ``pod_group`` is the process group of the training step's
-        cross-pod gradient mean, or None."""
-        return cls(cfg, MCtx(parallel, resolve_device(device), pod_group))
+        cross-pod gradient mean, or None. With a ``DeviceMesh`` the model
+        runs the mesh path on the mesh's device type."""
+        if mesh is not None:
+            if device is None and mesh.device_type == "cuda":
+                dev = torch.device("cuda")     # a fake mesh needs no card
+            else:
+                dev = resolve_device(device or mesh.device_type)
+            if dev.type != mesh.device_type:
+                raise ValueError(f"device {dev} is not on the "
+                                 f"{mesh.device_type} mesh")
+        else:
+            dev = resolve_device(device)
+        return cls(cfg, MCtx(parallel, dev, pod_group, mesh=mesh,
+                             seq_sharded_cache=seq_sharded_cache))
 
     # -- specs ------------------------------------------------------------
     @property
     def specs(self) -> dict:
-        return model_specs(self.cfg)
+        return model_specs(self.cfg, self.mctx.mesh)
+
+    def param_sharding(self, spec: pm.ParamSpec, memory_kind=None):
+        return named_sharding(self.mctx.mesh, self.mctx.rules, spec.axes,
+                              spec.shape, memory_kind=memory_kind)
+
+    def abstract_params(self, memory_kinds: Optional[dict] = None,
+                        dtype: Optional[torch.dtype] = None) -> dict:
+        """Fake DTensors with the rules' placements (dry-run inputs).
+
+        ``memory_kinds``: optional {top-level group: kind}, recorded on
+        each leaf; ``dtype`` overrides the specs' (e.g. bf16 serving)."""
+        def mk(path, s: pm.ParamSpec):
+            kind = (memory_kinds or {}).get(path[0])
+            kind = None if kind == "device" else kind
+            return pm.abstract_leaf(s.shape, dtype or pm.torch_dtype(s.dtype),
+                                    self.param_sharding(s, kind))
+        return _tree_map_with_path(mk, self.specs)
+
+    def abstract_cache(self, B: int, S: int) -> dict:
+        cspecs = cache_specs(self.cfg, self.mctx, B, S)
+        return _tree_map_with_path(
+            lambda path, s: pm.abstract_leaf(
+                s.shape, pm.torch_dtype(s.dtype), self.param_sharding(s)),
+            cspecs)
 
     @property
     def device(self) -> torch.device:
@@ -57,20 +106,42 @@ class Model(nn.Module):
         return self.params
 
     def set_params(self, params: dict) -> None:
-        """Hold ``params`` (a nested dict of tensors) as the module's tree."""
+        """Hold ``params`` (a nested dict of tensors) as the module's tree;
+        on a mesh each leaf as a DTensor placed by the rules."""
+        if self.mctx.mesh is not None:
+            params = self._placed(params)
         self.tree = _as_module(params)
+
+    def _placed(self, params: dict) -> dict:
+        def put(path, s: pm.ParamSpec):
+            leaf = params
+            for k in path:
+                leaf = leaf[k]
+            return distribute(leaf, self.mctx.mesh,
+                              self.param_sharding(s).placements)
+        return _tree_map_with_path(put, self.specs)
 
     @property
     def params(self) -> dict:
         return _as_dict(self.tree)
 
     def init_cache(self, B: int, S: int) -> dict:
-        return pm.map_specs(
-            lambda s: torch.zeros(s.shape, dtype=pm.torch_dtype(s.dtype),
-                                  device=self.device),
-            cache_specs(self.cfg, self.mctx, B, S))
+        def zeros(s: pm.ParamSpec):
+            if self.mctx.mesh is None:
+                return torch.zeros(s.shape, dtype=pm.torch_dtype(s.dtype),
+                                   device=self.device)
+            pl = self.param_sharding(s).placements
+            local = torch.zeros(local_shape(s.shape, pl, self.mctx.mesh),
+                                dtype=pm.torch_dtype(s.dtype),
+                                device=self.device)
+            return DTensor.from_local(local, self.mctx.mesh, list(pl),
+                                      run_check=False)
+        return pm.map_specs(zeros, cache_specs(self.cfg, self.mctx, B, S))
 
     # -- steps ----------------------------------------------------------------
+    def loss(self, params, batch):
+        return loss_fn(params, self.cfg, self.mctx, batch)
+
     def prefill(self, params, batch, max_len: int = 0):
         return prefill(params, self.cfg, self.mctx, batch, max_len=max_len)
 
@@ -96,3 +167,10 @@ def _as_dict(m: nn.Module) -> dict:
     out: dict = {k: p for k, p in m.named_parameters(recurse=False)}
     out.update({k: _as_dict(c) for k, c in m.named_children()})
     return out
+
+
+def _tree_map_with_path(fn, tree, path=()):
+    if isinstance(tree, pm.ParamSpec):
+        return fn(path, tree)
+    return {k: _tree_map_with_path(fn, v, path + (k,))
+            for k, v in tree.items()}

@@ -2,14 +2,23 @@
 dispatch (no (T, E, C) one-hot is ever built) that drops overflow tokens,
 GShard-style.
 
-On one card this is the arithmetic of the reference's expert-parallel body
-(``_moe_ep_body``), which its one-device mesh runs with every collective
-over a group of one: route all B * S tokens, fill each expert's ``C`` slots
-in token order, run the experts, scatter-add the gated outputs back. Which
-tokens drop is the reference's: a stable argsort of the flattened expert
-ids, ties kept in (token, slot) order. The tensor-parallel body (experts
-replicated, hidden dim sharded, dispatch in 8 chunks) is a mesh matter and
-comes with the slice that ports the mesh.
+Two bodies, as in the reference, picked by ``use_ep`` on a mesh
+(``models/tp.moe_ffn``):
+
+* **EP** (``_moe_ep_body``): experts sharded over ``(data, model)``; each
+  rank routes its share of the tokens and sends each expert's slots to the
+  rank that holds it by an ``all_to_all`` (equal splits: every expert has
+  ``C`` slots). Used when ``num_experts % (data * model) == 0``.
+* **TP** (``_moe_tp_body``): every rank holds all experts with the hidden
+  dim sharded over ``model``; dispatch is local, in 8 chunks with a
+  capacity per chunk, and the partial outputs are summed over ``model``.
+
+Without a mesh, ``moe_ffn`` is the EP body's arithmetic over a group of
+one, which the reference's one-device mesh runs: route all B * S tokens,
+fill each expert's ``C`` slots in token order, run the experts,
+scatter-add the gated outputs back. Which tokens drop is the reference's: a
+stable argsort of the flattened expert ids, ties kept in (token, slot)
+order.
 """
 
 from __future__ import annotations
@@ -28,17 +37,36 @@ from repro_torch.models.params import ParamSpec
 # --------------------------------------------------------------------------
 
 
-def moe_specs(cfg: ModelConfig) -> dict:
+# calls of each mesh body since the last reset (the dry-run records which
+# body a cell reached)
+BODY_CALLS = {"ep": 0, "tp": 0}
+
+
+def _axis_size(mesh, name: str) -> int:
+    """A mesh axis's size (1 without a mesh or without the axis); ``mesh``
+    as ``models.sharding.mesh_sizes`` takes it."""
+    from repro_torch.models.sharding import mesh_sizes
+    return 1 if mesh is None else mesh_sizes(mesh).get(name, 1)
+
+
+def use_ep(cfg: ModelConfig, mesh) -> bool:
+    e = cfg.moe
+    group = _axis_size(mesh, "data") * _axis_size(mesh, "model")
+    return e.num_experts % group == 0 and e.num_experts >= group
+
+
+def moe_specs(cfg: ModelConfig, ep: bool = True) -> dict:
     e = cfg.moe
     d = cfg.d_model
     ff = e.d_ff_expert or cfg.d_ff
-    eaxes = ("experts", None, None)
+    waxes = (("experts", None, None) if ep else (None, "embed", "mlp"))
+    daxes = (("experts", None, None) if ep else (None, "mlp", "embed"))
     specs = {
         "router": ParamSpec((d, e.num_experts), (None, None),
                             init="small_normal"),
-        "w_gate": ParamSpec((e.num_experts, d, ff), eaxes),
-        "w_up": ParamSpec((e.num_experts, d, ff), eaxes),
-        "w_down": ParamSpec((e.num_experts, ff, d), eaxes),
+        "w_gate": ParamSpec((e.num_experts, d, ff), waxes),
+        "w_up": ParamSpec((e.num_experts, d, ff), waxes),
+        "w_down": ParamSpec((e.num_experts, ff, d), daxes),
     }
     if e.num_shared_experts:
         ffs = ff * e.num_shared_experts
@@ -114,6 +142,95 @@ def _expert_ffn(toks: torch.Tensor, w_gate: torch.Tensor,
     return torch.bmm(h, w_down.to(dt))
 
 
+def _routed(x_tok: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig,
+            C: int, experts):
+    """Route ``x_tok`` (T, d), fill each expert's ``C`` slots, run
+    ``experts`` on the (E, C, d) buffer, combine. Returns (y (T, d), aux,
+    the (token, slot) pairs dropped)."""
+    e = cfg.moe
+    E = e.num_experts
+    T, d = x_tok.shape
+    gates, eids, probs = _route(x_tok, router_w, e.top_k)
+    aux = _aux_loss(probs, eids, E)
+    se, st, pos, keep, order = _dispatch_indices(eids, E, C)
+    # dropped pairs land in slot C, one past the expert's buffer, which no
+    # expert reads; zeros are read back from there
+    buf = torch.zeros((E, C + 1, d), dtype=x_tok.dtype, device=x_tok.device)
+    buf = buf.index_put((se, pos), x_tok[st])
+    out_buf = experts(buf[:, :C])
+    vals = F.pad(out_buf, (0, 0, 0, 1))[se, pos]
+    w = (gates.reshape(-1)[order] * keep).to(x_tok.dtype)
+    y = torch.zeros((T, d), dtype=x_tok.dtype, device=x_tok.device)
+    y = y.index_add(0, st, vals * w[:, None])
+    return y, aux, (~keep).sum()
+
+
+def _moe_ep_body(x, router_w, w_gate, w_up, w_down, *, cfg: ModelConfig,
+                 G: int, tp: int, j: int, all_to_all, gather_tp):
+    """The expert-parallel body on one rank's shards: x (B, S, d) this
+    rank's batch, the experts its ``E / G`` of them. The rank takes the
+    ``j``-th of ``tp`` slices of its tokens, routes them, sends each
+    expert's slots to its rank (``all_to_all`` of a (G * E_loc * C, d)
+    tensor in equal splits), runs its experts on what arrives, sends the
+    outputs back and combines; ``gather_tp`` joins the ``tp`` slices.
+    Returns (y, aux, dropped)."""
+    BODY_CALLS["ep"] += 1
+    e = cfg.moe
+    E = e.num_experts
+    B, S, d = x.shape
+    E_loc = E // G
+    T_loc = B * S
+    x_tok = x.reshape(T_loc, d)
+    # split tokens over the model axis so routing/dispatch is TP-sharded
+    T_pad = -(-T_loc // tp) * tp
+    if T_pad != T_loc:
+        x_tok = F.pad(x_tok, (0, 0, 0, T_pad - T_loc))
+    T_chip = T_pad // tp
+    x_my = x_tok[j * T_chip:(j + 1) * T_chip]
+    C = _capacity(T_chip, e.top_k, E, e.capacity_factor)
+
+    def experts(buf):
+        send = buf.reshape(G * E_loc * C, d)
+        recv = all_to_all(send).reshape(G, E_loc, C, d)
+        toks = recv.transpose(0, 1).reshape(E_loc, G * C, d)
+        out = _expert_ffn(toks, w_gate, w_up, w_down)
+        back = out.reshape(E_loc, G, C, d).transpose(0, 1)
+        return all_to_all(back.reshape(G * E_loc * C, d)).reshape(E, C, d)
+    y_my, aux, dropped = _routed(x_my, router_w, cfg, C, experts)
+    y = gather_tp(y_my)                                   # (T_pad, d)
+    return y[:T_loc].reshape(B, S, d), aux, dropped
+
+
+def _moe_tp_body(x, router_w, w_gate, w_up, w_down, *, cfg: ModelConfig,
+                 n_chunks: int):
+    """The tensor-parallel body on one rank's shards: every expert, this
+    rank's slice of their hidden dim. Tokens are dispatched in
+    ``n_chunks`` chunks (one if they do not divide), each with its own
+    capacity; the output is this rank's partial sum over the hidden dim.
+    Returns (y, aux averaged over the chunks, dropped)."""
+    BODY_CALLS["tp"] += 1
+    e = cfg.moe
+    E = e.num_experts
+    B, S, d = x.shape
+    T_loc = B * S
+    x_tok = x.reshape(T_loc, d)
+    nc = n_chunks if T_loc % n_chunks == 0 else 1
+    Tc = T_loc // nc
+    C = _capacity(Tc, e.top_k, E, e.capacity_factor)
+
+    def experts(buf):
+        return _expert_ffn(buf, w_gate, w_up, w_down)
+    ys, auxs, dropped = [], [], 0
+    for c in range(nc):
+        y, aux, dr = _routed(x_tok[c * Tc:(c + 1) * Tc], router_w, cfg, C,
+                             experts)
+        ys.append(y)
+        auxs.append(aux)
+        dropped = dropped + dr
+    return (torch.cat(ys).reshape(B, S, d), torch.stack(auxs).mean(),
+            dropped)
+
+
 # --------------------------------------------------------------------------
 # Public entry
 # --------------------------------------------------------------------------
@@ -123,7 +240,12 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, mctx=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d). Returns (y, aux). Where ``mctx.stats`` is a dict, the
     number of (token, slot) pairs dropped for want of capacity is added to
-    its ``"moe_dropped"`` (a device tensor, so the call does not sync)."""
+    its ``"moe_dropped"`` (a device tensor, so the call does not sync).
+    With a mesh the EP or TP body runs on local shards
+    (``models/tp.moe_ffn``)."""
+    if getattr(mctx, "mesh", None) is not None:
+        from repro_torch.models.tp import moe_ffn as mesh_moe_ffn
+        return mesh_moe_ffn(p, x, cfg, mctx)
     e = cfg.moe
     E = e.num_experts
     B, S, d = x.shape

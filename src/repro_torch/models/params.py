@@ -2,7 +2,9 @@
 
 A model is described by a nested dict of ``ParamSpec``s (shape + logical axis
 names + init), as in the reference. From one spec tree the port derives
-initialized parameter trees (``init_params``) and parameter counts. Stacked
+initialized parameter trees (``init_params``), parameter counts and bytes,
+the logical-axes tree the sharding rules read (``param_axes``) and, for the
+dry-run, fake tensors carrying their placements (``abstract_params``). Stacked
 layers keep the reference's ``[L, ...]`` leading dim, so the port's tree and
 the reference's match key for key and ``params_from_jax`` can carry weights
 across.
@@ -15,6 +17,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.distributed.tensor import DTensor
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,3 +163,60 @@ def params_from_jax(tree, device, dtype: Optional[torch.dtype] = None):
 
 def count_params(specs) -> int:
     return sum(int(np.prod(s.shape)) for _, s in _flatten_with_path(specs))
+
+
+def param_axes(specs):
+    """Same-structure tree of logical-axes tuples."""
+    return map_specs(lambda s: s.axes, specs)
+
+
+def param_bytes(specs) -> int:
+    return sum(int(np.prod(s.shape)) * torch_dtype(s.dtype).itemsize
+               for _, s in _flatten_with_path(specs))
+
+
+_FAKE: Optional[FakeTensorMode] = None
+
+
+def fake_mode() -> FakeTensorMode:
+    """The active ``FakeTensorMode``, or one this module keeps, so that
+    abstract trees made by separate calls can meet in one computation."""
+    global _FAKE
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if isinstance(mode, FakeTensorMode):
+            return mode
+    if _FAKE is None:
+        _FAKE = FakeTensorMode(allow_non_fake_inputs=True)
+    return _FAKE
+
+
+def abstract_leaf(shape, dtype: torch.dtype, sharding=None,
+                  device="cuda"):
+    """A fake tensor of ``shape`` (no memory behind it); with a
+    ``sharding`` (``models.sharding.NamedSharding``) a DTensor around this
+    rank's fake shard, placed as the sharding says, with its memory kind
+    recorded as ``memory_kind`` (a fake tensor cannot be pinned)."""
+    from repro_torch.models.sharding import local_shape
+    shape = tuple(shape)
+    with fake_mode():
+        if sharding is None:
+            return torch.empty(shape, dtype=dtype, device=device)
+        mesh = sharding.mesh
+        local = torch.empty(local_shape(shape, sharding.placements, mesh),
+                            dtype=dtype, device=mesh.device_type)
+        stride = torch.empty(shape, dtype=dtype, device="meta").stride()
+        t = DTensor.from_local(local, mesh, list(sharding.placements),
+                               run_check=False, shape=shape, stride=stride)
+    t.memory_kind = sharding.memory_kind or "device"
+    return t
+
+
+def abstract_params(specs, sharding_fn=None, dtype=None):
+    """Fake tensors for a spec tree, placed by ``sharding_fn(axes, shape)``
+    where it is given (the reference's ShapeDtypeStructs with shardings)."""
+    def mk(s: ParamSpec):
+        dt = dtype or torch_dtype(s.dtype)
+        if sharding_fn is None:
+            return abstract_leaf(s.shape, dt)
+        return abstract_leaf(s.shape, dt, sharding_fn(s.axes, s.shape))
+    return map_specs(mk, specs)

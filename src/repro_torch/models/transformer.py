@@ -10,6 +10,9 @@ scans over a stack, the port loops over ``layer_views`` of it.
 Training (``loss_fn``) runs the same forward with ``collect=False`` (no
 stacked caches) and, under ``ParallelConfig.remat == "full"``, each block
 inside ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``).
+With a mesh (``MCtx.mesh``) the attention archs run the blocks of
+``models/tp.py`` on DTensors, with the reference's constraints at block
+boundaries; the others raise (``tp.check_mesh``).
 qwen2-vl takes precomputed ``embeds`` in place of tokens and M-RoPE
 ``positions`` (3, B, S); whisper is an encoder-decoder
 (``encdec_forward``): a bidirectional encoder over frame embeddings and a
@@ -23,10 +26,11 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.models import kvcache
+from repro_torch.models import kvcache, tp
 from repro_torch.models.attention import (attention_specs, attn_forward,
                                           mla_forward, mla_specs)
 from repro_torch.models.context import MCtx
@@ -34,7 +38,7 @@ from repro_torch.models.layers import (chunked_ce_loss, embed_tokens,
                                        embedding_specs, mlp_apply, mlp_specs,
                                        rmsnorm, rmsnorm_spec,
                                        sinusoidal_pos_emb)
-from repro_torch.models.moe import moe_ffn, moe_specs
+from repro_torch.models.moe import moe_ffn, moe_specs, use_ep
 from repro_torch.models.params import map_specs, stack_specs, torch_dtype
 from repro_torch.models.ssm import ssm_forward, ssm_specs
 from repro_torch.models.xlstm import (mlstm_forward, mlstm_specs,
@@ -99,7 +103,7 @@ def segment_plan(cfg: ModelConfig) -> list[Seg]:
 # --------------------------------------------------------------------------
 
 
-def attn_block_specs(cfg: ModelConfig, moe: bool = False,
+def attn_block_specs(cfg: ModelConfig, moe: bool = False, ep: bool = True,
                      cross: bool = False, gated: bool = True) -> dict:
     """An attention block; ``cross`` adds cross-attention (``xattn``,
     ``ln_x``: whisper's decoder), ``gated=False`` the ungated MLP."""
@@ -112,7 +116,7 @@ def attn_block_specs(cfg: ModelConfig, moe: bool = False,
         specs["xattn"] = attention_specs(cfg)
     specs["ln2"] = rmsnorm_spec(d)
     if moe:
-        specs["moe"] = moe_specs(cfg)
+        specs["moe"] = moe_specs(cfg, ep)
     else:
         specs["mlp"] = mlp_specs(d, cfg.d_ff, gated=gated)
     return specs
@@ -136,9 +140,9 @@ def slstm_block_specs(cfg: ModelConfig) -> dict:
     return {"ln": rmsnorm_spec(cfg.d_model), "cell": slstm_specs(cfg)}
 
 
-def seg_specs(cfg: ModelConfig, seg: Seg) -> dict:
+def seg_specs(cfg: ModelConfig, seg: Seg, ep: bool = True) -> dict:
     if seg.kind == "attn":
-        return stack_specs(attn_block_specs(cfg, seg.moe), seg.n)
+        return stack_specs(attn_block_specs(cfg, seg.moe, ep), seg.n)
     if seg.kind == "gemma":
         return stack_specs({
             "local": stack_specs(attn_block_specs(cfg), seg.sub),
@@ -160,8 +164,10 @@ def seg_specs(cfg: ModelConfig, seg: Seg) -> dict:
     raise ValueError(seg.kind)
 
 
-def model_specs(cfg: ModelConfig) -> dict:
-    """Full parameter spec tree for an architecture."""
+def model_specs(cfg: ModelConfig, mesh=None) -> dict:
+    """Full parameter spec tree for an architecture; the MoE weights' axes
+    follow ``use_ep`` on ``mesh`` (expert-parallel without one)."""
+    ep = use_ep(cfg, mesh) if cfg.moe is not None else True
     specs: dict[str, Any] = {"embed": embedding_specs(cfg),
                              "final_norm": rmsnorm_spec(cfg.d_model)}
     if cfg.encoder_decoder:
@@ -172,7 +178,7 @@ def model_specs(cfg: ModelConfig) -> dict:
             attn_block_specs(cfg, cross=True, gated=False), cfg.num_layers)
         return specs
     for seg in segment_plan(cfg):
-        specs[seg.name] = seg_specs(cfg, seg)
+        specs[seg.name] = seg_specs(cfg, seg, ep)
     if cfg.family == "hybrid":
         specs["shared_attn"] = shared_attn_specs(cfg)
     return specs
@@ -192,7 +198,9 @@ def layer_views(p: dict, n: int) -> list[dict]:
     layer's backward a zero-filled gradient of the whole stacked leaf.
     """
     def split(v):
-        return split_tree(v) if isinstance(v, dict) else torch.unbind(v)
+        if isinstance(v, dict):
+            return split_tree(v)
+        return tp.unbind(v) if isinstance(v, DTensor) else torch.unbind(v)
 
     def split_tree(t):
         parts = {k: split(v) for k, v in t.items()}
@@ -209,6 +217,10 @@ def _attn_block_fwd(p, x, positions, cfg: ModelConfig, mctx: MCtx, *,
                     use_rope: bool = True, gated: bool = True,
                     q_chunk: int = 512):
     """Returns (x, kv, aux)."""
+    if mctx.mesh is not None:
+        return tp.attn_block_fwd(p, x, positions, cfg, mctx, window=window,
+                                 moe=moe, causal=causal, use_rope=use_rope,
+                                 q_chunk=q_chunk)
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.attn_type == "mla":
         a, kv = mla_forward(p["attn"], h, positions, cfg, q_chunk=q_chunk)
@@ -263,7 +275,7 @@ def _to_ring(kv: dict, window: int, S: int) -> dict:
 
     def conv(a):
         return torch.roll(a[:, S - window:], shifts=S % window, dims=1)
-    return {k: conv(v) for k, v in kv.items()}
+    return {k: tp.map_local(conv, v) for k, v in kv.items()}
 
 
 def _stack(trees: list):
@@ -271,6 +283,8 @@ def _stack(trees: list):
     dim)."""
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], DTensor):
+        return tp.stack(trees)
     return torch.stack(trees)
 
 
@@ -310,7 +324,8 @@ def seg_forward(p, x, positions, cfg: ModelConfig, mctx: MCtx, seg: Seg, *,
             x, kv, a = _attn_block_fwd(lp, x, positions, cfg, mctx,
                                        window=window, moe=moe,
                                        q_chunk=q_chunk)
-            return x, (_to_ring(kv, window, S) if collect else None), a
+            return x, (mctx.constrain_kv(_to_ring(kv, window, S))
+                       if collect else None), a
         return fn
 
     def no_aux(block):               # a block with no MoE loss
@@ -378,11 +393,18 @@ def _empty_caches(cfg: ModelConfig, seg: Seg, B: int, S: int, device):
 
 
 def _input_hidden(params, cfg: ModelConfig, batch: dict,
-                  dtype: torch.dtype) -> torch.Tensor:
+                  dtype: torch.dtype, mctx: Optional[MCtx] = None
+                  ) -> torch.Tensor:
     """The stub frontend's ``embeds`` where the batch has them, else the
-    tokens' embeddings."""
+    tokens' embeddings (on a mesh, a DTensor partial over ``model``)."""
+    mesh = mctx is not None and mctx.mesh is not None
     if cfg.frontend in ("vision", "audio") and "embeds" in batch:
+        if mesh:
+            return tp.inputs(mctx, batch["embeds"].to(dtype),
+                             ("act_batch", None, None))
         return batch["embeds"].to(dtype)
+    if mesh:
+        return tp.embed(mctx, params["embed"]["tok"], batch["tokens"], dtype)
     return embed_tokens(params["embed"], batch["tokens"], dtype)
 
 
@@ -415,9 +437,12 @@ def forward_hidden(params, cfg: ModelConfig, mctx: MCtx, batch: dict, *,
     row. There is no padding mask, as in the reference.
     """
     plan = segment_plan(cfg)
-    x = _input_hidden(params, cfg, batch, torch_dtype(cfg.dtype))
+    if mctx.mesh is not None:
+        tp.check_mesh(cfg)
+    x = _input_hidden(params, cfg, batch, torch_dtype(cfg.dtype), mctx)
     B, S = x.shape[:2]
     positions = _positions(cfg, batch, B, S, x.device)
+    x = mctx.constrain(x, ("act_batch", "act_seq", "act_embed"))
     caches: dict[str, Optional[Any]] = {}
     aux = _zero_aux(x)
     shared = params.get("shared_attn")
@@ -425,9 +450,13 @@ def forward_hidden(params, cfg: ModelConfig, mctx: MCtx, batch: dict, *,
         x, c, a = seg_forward(params[seg.name], x, positions, cfg, mctx, seg,
                               collect=collect, remat=remat,
                               shared_attn=shared, q_chunk=q_chunk)
+        x = mctx.constrain(x, ("act_batch", "act_seq", "act_embed"))
         caches[seg.name] = c
         aux = aux + a
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    if mctx.mesh is not None:
+        x = tp.rms_norm(mctx, x, params["final_norm"], cfg.norm_eps)
+    else:
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x, caches, aux
 
 
@@ -510,6 +539,10 @@ def loss_fn(params, cfg: ModelConfig, mctx: MCtx, batch: dict,
     forward = encdec_forward if cfg.encoder_decoder else forward_hidden
     x, _, aux = forward(params, cfg, mctx, batch, remat=remat,
                         q_chunk=q_chunk)
-    ce = chunked_ce_loss(x, params["embed"], batch["labels"],
-                         cfg.tie_embeddings)
+    if mctx.mesh is not None:
+        ce = tp.ce_loss(mctx, x, params["embed"], batch["labels"],
+                        cfg.tie_embeddings)
+    else:
+        ce = chunked_ce_loss(x, params["embed"], batch["labels"],
+                             cfg.tie_embeddings)
     return ce + aux_coef * aux, {"ce": ce, "aux": aux}

@@ -25,3 +25,6 @@ def warmup_cosine(step, *, peak_lr: float, warmup_steps: int,
                      * 0.5 * (1 + torch.cos(math.pi * frac)))
     return torch.where(step < warmup_steps, warm, cos)
 
+
+def constant(step, *, peak_lr: float, **_) -> torch.Tensor:
+    return torch.full_like(_f32(step), peak_lr)

@@ -5,8 +5,8 @@ The port of the reference's ``repro/runtime/elastic.py`` (pure Python).
 ``plan_mesh`` chooses the largest valid (data, model) factorization under
 the constraint set; ``replan`` keeps tokens-per-chip roughly constant by
 rescaling the global batch (linear-scaling-rule note recorded for the
-optimizer). Building the mesh itself (the reference's
-``make_elastic_mesh``) comes with the slice that ports ``launch/mesh.py``.
+optimizer); ``make_elastic_mesh`` builds the decision's (data, model)
+``DeviceMesh`` over the ranks of the default process group.
 
 ``replan_interleave`` is the serving-side counterpart: re-derive the KV
 page interleave from the fabric *as it is now* — degraded links, removed
@@ -59,6 +59,12 @@ def replan(cfg: ModelConfig, shape: ShapeConfig, n_devices: int,
             f"global_batch {prev} -> {new_batch} "
             "(scale LR linearly with batch if changed)")
     return ElasticDecision((data, model), new_batch, note)
+
+
+def make_elastic_mesh(decision: ElasticDecision, device_type=None):
+    from repro_torch.launch.mesh import DATA_AXIS, MODEL_AXIS, _make_mesh
+    data, model = decision.mesh_shape
+    return _make_mesh((data, model), (DATA_AXIS, MODEL_AXIS), device_type)
 
 
 # --------------------------------------------------------------------------

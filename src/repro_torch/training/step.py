@@ -15,7 +15,13 @@ counterpart of a ``pod`` mesh axis) replaces the cross-pod gradient
 all-reduce with an int8 all-gather and a local mean
 (``core.compression.compressed_pod_mean``), leaf by leaf, each bf16
 gradient freed as soon as its fp32 mean exists; loss and parts are averaged
-over the group. ``abstract_train_state`` stays with the dry-run.
+over the group.
+
+With a mesh the state is DTensors placed by the sharding rules; each
+gradient comes back summed over the ranks that share it and is
+redistributed to its parameter's placements (the data-parallel reduction:
+a reduce-scatter under FSDP) before the update. ``abstract_train_state``
+gives the dry-run's fake state.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.compression import compressed_pod_mean
 from repro_torch.core.offload import OffloadStats, host_zeros, put_tree
@@ -52,6 +59,10 @@ def compute_grads(model: Model, params_c, batch,
     # gemma3's) gets a zero gradient, as under jax.grad
     grads = [torch.zeros_like(x) if g is None else g for x, g in zip(
         leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+    if model.mctx.mesh is not None:
+        grads = [g.redistribute(x.device_mesh, x.placements)
+                 if isinstance(g, DTensor) else g
+                 for x, g in zip(leaves, grads)]
     del leaves
     loss, parts = loss.detach(), {k: v.detach() for k, v in parts.items()}
     group = mctx.pod_group
@@ -64,12 +75,24 @@ def compute_grads(model: Model, params_c, batch,
 
 
 def _split_microbatches(batch: dict, n: int) -> dict:
-    """Reshape every batch leaf to (n, B/n, ...) on its batch dim."""
+    """Reshape every batch leaf to (n, B/n, ...) on its batch dim. A
+    DTensor leaf splits each rank's own rows (microbatch j is every rank's
+    j-th slice), so no rows move between ranks."""
     out = {}
     for k, v in batch.items():
         B = v.shape[0]
         if B % n:
             raise ValueError(f"{k}: batch {B} % microbatches {n} != 0")
+        if isinstance(v, DTensor):
+            loc = v.to_local()
+            if loc.shape[0] % n:
+                raise ValueError(f"{k}: local batch {loc.shape[0]} % "
+                                 f"microbatches {n} != 0")
+            loc = loc.reshape(n, loc.shape[0] // n, *loc.shape[1:])
+            out[k] = [DTensor.from_local(m, v.device_mesh, v.placements,
+                                         run_check=False)
+                      for m in torch.unbind(loc)]
+            continue
         out[k] = v.reshape(n, B // n, *v.shape[1:])
     return out
 
@@ -124,8 +147,8 @@ def make_train_step(model: Model, hyper: adamw.AdamWConfig,
                 (l, parts), g = grads_of(params_c,
                                          {k: v[j] for k, v in mbs.items()})
                 if acc is None:
-                    acc = pm.tree_map(lambda g: torch.zeros(
-                        g.shape, dtype=torch.float32, device=g.device), g)
+                    acc = pm.tree_map(lambda g: torch.zeros_like(
+                        g, dtype=torch.float32), g)
                 acc = pm.tree_map(lambda a, g: a + g.float(), acc, g)
                 loss, ce, aux = (loss + l, ce + parts["ce"],
                                  aux + parts["aux"])
@@ -183,3 +206,23 @@ def init_train_state(model: Model, generator: torch.Generator,
                                nu=zeros(kinds.get("nu", "device")),
                                count=torch.zeros((), dtype=torch.int32))
     return params_c, master, opt_state
+
+
+def abstract_train_state(model: Model, plan):
+    """Fake (params_c bf16, master fp32, opt_state) trees placed by the
+    sharding rules, each leaf recording the placement plan's memory kind
+    (``memory_kind``; a fake tensor cannot be pinned) — dry-run inputs."""
+    kinds = plan.memory_kinds()
+
+    def tree(dtype, kind):
+        mk = None if kind == "device" else kind
+        return pm.map_specs(lambda s: pm.abstract_leaf(
+            s.shape, dtype, model.param_sharding(s, mk)), model.specs)
+
+    params_c = tree(torch.bfloat16, kinds["params"])
+    master = tree(torch.float32, kinds["master"])
+    mu = tree(torch.float32, kinds["mu"])
+    nu = tree(torch.float32, kinds["nu"])
+    count = pm.abstract_leaf((), torch.int32,
+                             device=model.mctx.mesh.device_type)
+    return params_c, master, adamw.OptState(mu=mu, nu=nu, count=count)

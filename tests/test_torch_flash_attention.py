@@ -329,3 +329,77 @@ def test_attn_forward_reaches_kernel_with_causal_on_card(causal):
                            mctx=mctx["eager"])
     o, r = got.float(), want.float()
     assert ((o - r).norm() / r.norm()).item() <= 1e-2
+
+
+# --------------------------------------------------------------------------
+# K1 as a custom op (the dry-run's fake, the mesh path's local heads)
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("Sq,Skv,causal,window", [
+    (16, 16, True, 0), (16, 16, True, 5), (16, 16, False, 0),
+    (16, 16, False, 4), (7, 9, True, 3)])
+def test_k1_flop_formula_counts_attended_pairs(Sq, Skv, causal, window):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.kernels.flash_attention.ops import attended_pairs
+    qp = torch.arange(Sq)[:, None]
+    kp = torch.arange(Skv)[None, :]
+    mask = torch.ones(Sq, Skv, dtype=torch.bool)
+    if causal:
+        mask &= kp <= qp
+    if window:
+        mask &= kp > qp - window
+    assert attended_pairs(Sq, Skv, causal, window) == int(mask.sum())
+    with FakeTensorMode():
+        q = torch.empty(2, 4, Sq, 32)
+        k = torch.empty(2, 2, Skv, 32)
+        with FlopCounterMode(display=False) as fc:
+            out = flash_attention(q, k, k, causal=causal, window=window)
+    assert tuple(out.shape) == (2, 4, Sq, 32)
+    assert fc.get_total_flops() == 4 * 2 * 4 * 32 * int(mask.sum())
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+
+
+@pytest.mark.gpu
+def test_k1_fake_matches_real_shape_and_strides():
+    _need_card()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.randn(2, 64, 8, 128, device="cuda",
+                    dtype=torch.bfloat16).transpose(1, 2)
+    k = torch.randn(2, 64, 2, 128, device="cuda",
+                    dtype=torch.bfloat16).transpose(1, 2)
+    real = flash_attention(q, k, k)
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fq, fk = mode.from_tensor(q), mode.from_tensor(k)
+        fake = flash_attention(fq, fk, fk)
+    assert fake.shape == real.shape and fake.stride() == real.stride()
+    assert fake.dtype == real.dtype
+
+
+@pytest.mark.gpu
+def test_k1_on_local_heads_and_counted_once_per_call():
+    _need_card()
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.launch.mesh import local_process_group, make_host_mesh
+    from repro_torch.models.sharding import distribute
+    from torch.distributed.tensor import Shard
+    q = torch.randn(2, 8, 128, 64, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn(2, 2, 128, 64, device="cuda", dtype=torch.bfloat16)
+    with local_process_group("cuda"):
+        mesh = make_host_mesh()
+        dq = distribute(q, mesh, [Shard(0), Shard(1)])
+        dk = distribute(k, mesh, [Shard(0), Shard(1)])
+        kernels.reset_launches()
+        out = flash_attention(dq.to_local(), dk.to_local(), dk.to_local())
+        assert kernels.LAUNCHES["flash_attention"] == 1
+    want = flash_attention_ref(q, k, k)
+    err = (out.float() - want.float()).norm() / want.float().norm()
+    assert err.item() < 1e-2

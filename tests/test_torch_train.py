@@ -444,8 +444,10 @@ def test_train_config_copy_matches_reference():
     assert got == want
     jp = JaxParallelConfig()
     p = ParallelConfig()
-    assert (p.remat, p.microbatches, p.gradient_compression) == \
-        (jp.remat, jp.microbatches, jp.gradient_compression)
-    for bad in (dict(remat="dots"), dict(microbatches=0)):
+    assert dataclasses.asdict(p) == {**dataclasses.asdict(jp),
+                                     "attention_kernel": "eager"}
+    assert jp.attention_kernel == "xla"          # the port's "eager"
+    ParallelConfig(remat="dots")                 # the reference's third
+    for bad in (dict(remat="layers"), dict(microbatches=0)):
         with pytest.raises(ValueError):
             ParallelConfig(**bad)
