@@ -202,7 +202,16 @@ while the host has the most memory to pin):
                  encoder through K1 within 3e-2 of the eager encoder, the
                  cross caches (12, 4, 1500, 12, 64) within 1e-2 of the
                  encoder output's projections, every decode step within
-                 3e-2 of an eager encdec_forward). Each prints prefill and
+                 3e-2 of an eager encdec_forward). After deepseek-v3,
+                 zamba2-7b, xlstm-350m and whisper-small each run plain,
+                 the same weights (views, no second copy) as DTensors on a
+                 one-rank NCCL mesh: 8 greedy steps on the plain and the
+                 mesh path, tokens equal, the prefill logits (whisper: the
+                 encoder output and the first step's logits) within 3e-2,
+                 exactly 12 K1 launches in whisper's mesh prefill and K1
+                 on the mesh body's local heads (the first encoder layer's
+                 q, k, v) within 1e-2 of flash_attention_ref; both paths'
+                 prefill and decode walls and device times. Each prints prefill and
                  decode times, tokens/s, device time and idle share, peak memory,
                  and the bf16 noise floor of the comparison (the eager
                  forward of each request alone against the batch). Before
@@ -217,9 +226,13 @@ while the host has the most memory to pin):
                  at once, after every timed phase (its processes load the
                  host's cores), on the fake 16x16 production mesh (a fake
                  process group of 256 ranks, no traffic): yi-9b decode_32k,
-                 yi-9b train_4k (FSDP, one microbatch) and mixtral-8x22b
+                 yi-9b train_4k (FSDP, one microbatch), mixtral-8x22b
                  prefill_32k (which must reach the MoE tensor-parallel
-                 body); each record ok, its
+                 body), deepseek-v3-671b decode_32k (MLA; the
+                 expert-parallel body), zamba2-7b long_500k (the
+                 sequence-sharded cache), xlstm-350m train_4k (one
+                 microbatch; heads split over 16 ranks) and whisper-small
+                 prefill_32k (K1 on local heads); each record ok, its
                  per-chip parameter bytes equal to what spec_for gives,
                  walker FLOPs > 0, a bottleneck of the three, train_4k's
                  MODEL/walker FLOP ratio in the reference's 0.03-1.6; then
@@ -426,19 +439,36 @@ MLA_DENSE_STEPS = 8
 # drops the Mamba2 skip term in bf16 read 9-22 there); a rounding of one
 # step's state or step size to bf16 stays at 1.
 DECODE_GAP_RATIO = 1.25
+# The models phase's mesh runs: after deepseek-v3, zamba2-7b, xlstm-350m
+# and whisper-small run plain, the same weights (views, no second copy) as
+# DTensors on a one-rank NCCL mesh; MESH_STEPS greedy decode steps on each
+# path, tokens equal, prefill logits (whisper: the encoder output and the
+# first step's logits) within LOGITS_REL_L2; device times over MESH_PROFILED
+# decode steps
+MESH_ARCHS = ("deepseek-v3-671b", "zamba2-7b", "xlstm-350m")
+MESH_STEPS = 8
+MESH_PROFILED = 2
 # device memory allowed in use before gemma3's 56.84 GB are drawn
 MODELS_START_BYTES = 1e9
 # The dryrun phase: production-mesh cells (one serve, one train with FSDP,
-# one through the MoE tensor-parallel body), each in its own process, with
-# any extra flags; the one-chip cell's predicted peak is held within this
-# fraction of the measured one; the train cell's MODEL/walker FLOP ratio
-# within the reference's bounds (tests/test_roofline.py). The train cell
-# takes one microbatch: the reference's plan (8 of 2 sequences a data
-# shard) traced in 193-262 s on the H100 machine's host, the script's
-# largest single wait.
+# one through the MoE tensor-parallel body; deepseek-v3's MLA decode through
+# the expert-parallel body over 256 ranks, zamba2's sequence-sharded
+# long_500k cache, xlstm's backward through heads split over 16 ranks,
+# whisper's encoder through K1 on local heads), each in its own process,
+# with any extra flags; the one-chip cell's predicted peak is held within
+# this fraction of the measured one; each train cell's MODEL/walker FLOP
+# ratio within the reference's bounds (tests/test_roofline.py). The train
+# cells take one microbatch: the reference's plan for yi-9b (8 of 2
+# sequences a data shard) traced in 193-262 s on the H100 machine's host,
+# the script's largest single wait.
 DRYRUN_CELLS = [("yi-9b", "decode_32k", ()),
                 ("yi-9b", "train_4k", ("--microbatches", "1")),
-                ("mixtral-8x22b", "prefill_32k", ())]
+                ("mixtral-8x22b", "prefill_32k", ()),
+                ("deepseek-v3-671b", "decode_32k", ()),
+                ("zamba2-7b", "long_500k", ()),
+                ("xlstm-350m", "train_4k", ("--microbatches", "1")),
+                ("whisper-small", "prefill_32k",
+                 ("--attention-kernel", "kernel"))]
 DRYRUN_PEAK_TOL = 0.25
 DRYRUN_TRAIN_RATIO = (0.03, 1.6)
 DRYRUN_TIMEOUT_S = 420
@@ -558,19 +588,21 @@ def attention_bound(shape, dtype: str) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def profile_device(fn, attempts: int = 1):
+def profile_device(fn, attempts: int = 1, cpu: bool = True):
     """Run ``fn`` under torch.profiler; return (its result, the device time
     in ms summed over every kernel, {kernel name: its device ms}). A
     recording that holds no device event is made again, up to ``attempts``
     times (give more than one only where running ``fn`` again changes
     nothing that is checked); after that the device time is None (not
-    measured)."""
+    measured). ``cpu=False`` records the device's activity alone: a run of
+    hundreds of thousands of small ops (xlstm's sLSTM loop) then takes
+    seconds, not a minute, to sum."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] if cpu else []
     for attempt in range(attempts):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
             out = fn()
             torch.cuda.synchronize()
         total, by_kernel = device_time(prof)
@@ -1733,10 +1765,10 @@ def phase_dryrun(mesh=None) -> dict:
                 <= DRYRUN_TRAIN_RATIO[1]):
             raise AssertionError(f"dryrun {name}: MODEL/walker FLOPs "
                                  f"{roof['flops_ratio']}")
-    if not (recs["mixtral-8x22b_prefill_32k"].get("moe_bodies") or {}).get(
-            "tp"):
-        raise AssertionError("mixtral-8x22b prefill_32k did not reach the "
-                             "MoE tensor-parallel body")
+    for name, body in (("mixtral-8x22b_prefill_32k", "tp"),
+                       ("deepseek-v3-671b_decode_32k", "ep")):
+        if not (recs[name].get("moe_bodies") or {}).get(body):
+            raise AssertionError(f"{name} did not reach the MoE {body} body")
     # the one-chip prediction against the card
     rec = recs["one_chip"]
     out = {"phase": "dryrun", "mesh": "16x16 (fake, 256 ranks)",
@@ -3205,6 +3237,181 @@ def mla_dense_check(cfg, params, batch) -> dict:
     return {"layers": fd, **check, "failures": bad}
 
 
+def _decoder_generate(model, params, batch: dict, steps: int) -> dict:
+    """greedy_run's walls and tokens, and the prefill's logits to hold."""
+    import numpy as np
+    r = greedy_run(model, params, batch, steps)
+    return {"prefill_ms": r["prefill_ms"],
+            "decode_ms_per_tok": r["decode_ms_per_tok"],
+            "decode_step_median_ms": r["decode_step_median_ms"],
+            "tokens": np.stack(r["tokens"], axis=1),
+            "held": {"prefill_logits": r["logits"]}}
+
+
+def _decoder_profile(model, params, batch: dict, n: int) -> tuple:
+    """Device ms of one prefill (room for ``n`` steps) and per decode step
+    over ``n`` steps."""
+    import torch
+    B, plen = batch["tokens"].shape
+    (_, cache), pre_dev, _ = profile_device(
+        lambda: model.prefill(params, batch, plen + n), attempts=3,
+        cpu=False)
+    tok = torch.zeros((B, 1), dtype=torch.int64, device="cuda")
+
+    def steps():
+        for s in range(n):
+            model.decode(params, cache, tok, plen + s)
+    _, dec_dev, _ = profile_device(steps, attempts=3, cpu=False)
+    return pre_dev, ratio(dec_dev, n)
+
+
+def _whisper_mesh_generate(model, params, frames, steps: int) -> dict:
+    r = whisper_generate(model, params, frames, steps)
+    return {"prefill_ms": r["prefill_ms"],
+            "decode_ms_per_tok": r["decode_ms_per_tok"],
+            "tokens": r["tokens"][:, 1:].cpu().numpy(),
+            "held": {"encoder": r["enc"], "first_logits": r["logits"][0]}}
+
+
+def _whisper_profile(model, params, frames, n: int) -> tuple:
+    import torch
+    (_, cache), pre_dev, _ = profile_device(
+        lambda: model.prefill(params, {"frames": frames}, max_len=n),
+        attempts=3, cpu=False)
+    tok = torch.full((frames.shape[0], 1), WHISPER["start_token"],
+                     device=frames.device)
+
+    def steps():
+        for s in range(n):
+            model.decode(params, cache, tok, s)
+    _, dec_dev, _ = profile_device(steps, attempts=3, cpu=False)
+    return pre_dev, ratio(dec_dev, n)
+
+
+def k1_local_heads(model, params, frames) -> dict:
+    """K1 at whisper's encoder shape on the local heads the mesh path's
+    attention body receives: the first encoder layer's q, k and v of the
+    frames as DTensors projected on the mesh (heads as the compute layout
+    splits them), then K1 on their local tensors, as the body calls it,
+    against flash_attention_ref on the same tensors."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.models import tp
+    from repro_torch.models.layers import sinusoidal_pos_emb
+    from repro_torch.models.transformer import layer_views
+    cfg, mctx = model.cfg, model.mctx
+    S = frames.shape[1]
+    x = frames + sinusoidal_pos_emb(torch.arange(S, device=frames.device),
+                                    cfg.d_model).to(frames.dtype)
+    x = tp.inputs(mctx, x, ("act_batch", None, None))
+    lp = layer_views(params["encoder"], cfg.num_encoder_layers)[0]
+    h = tp.rms_norm(mctx, x, lp["ln1"], cfg.norm_eps)
+    q, k, v = (tp._proj(mctx, h, lp["attn"][w], (
+        "embed", "heads" if w == "w_q" else "kv_heads", None)).to_local()
+        .transpose(1, 2) for w in ("w_q", "w_k", "w_v"))
+    out = flash_attention(q, k, v, causal=False)
+    ref = flash_attention_ref(q, k, v, causal=False)
+    rel = _rel_l2(out, ref)
+    return {"shape": [*q.shape], "causal": False, "rel_l2": rel,
+            "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+            "ok": rel <= BF16_REL_L2}
+
+
+def mesh_rerun(cfg, params, prompt, warm, generate, profile,
+               k1: int, hold=None) -> dict:
+    """``params`` (the plain run's weights) again through the mesh path on
+    a one-rank NCCL mesh, as views: ``generate`` MESH_STEPS greedy steps on
+    the plain path and on the mesh (after a warm-up of both on ``warm``),
+    the mesh run's K1 launches counted, both paths' device times over one
+    profiled prefill and MESH_PROFILED decode steps, then ``hold`` on the
+    mesh model where given. Checks: every leaf a DTensor over the plain
+    leaf's storage, a second plain run equal to the first bit for bit
+    (else the mesh's equality below would hold by chance), tokens equal,
+    the held tensors within LOGITS_REL_L2, exactly ``k1`` K1 launches."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch import kernels
+    from repro_torch.config.base import ParallelConfig
+    from repro_torch.launch.mesh import local_process_group, make_host_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.models.params import tree_flatten
+    t0 = time.perf_counter()
+    parallel = ParallelConfig(attention_kernel="kernel")
+    plain = Model.create(cfg, parallel)
+    with local_process_group("cuda"):
+        model = Model.create(cfg, parallel, mesh=make_host_mesh())
+        model.set_params(params)
+        placed = dict(tree_flatten(model.params))
+        views = all(isinstance(placed[path], DTensor)
+                    and placed[path].to_local().data_ptr() == leaf.data_ptr()
+                    for path, leaf in tree_flatten(params))
+        mparams = model.params
+        stage = [time.perf_counter()]
+        with torch.inference_mode():
+            generate(plain, params, warm, 2)
+            generate(model, mparams, warm, 2)
+            stage.append(time.perf_counter())
+            plain_run = generate(plain, params, prompt, MESH_STEPS)
+            again = generate(plain, params, prompt, MESH_STEPS)
+            kernels.reset_launches()
+            mesh_run = generate(model, mparams, prompt, MESH_STEPS)
+            launches = dict(kernels.LAUNCHES)
+            stage.append(time.perf_counter())
+            times = {name: profile(m, p, prompt, MESH_PROFILED)
+                     for name, m, p in (("plain", plain, params),
+                                        ("mesh", model, mparams))}
+            stage.append(time.perf_counter())
+            held = hold(model, mparams) if hold else None
+        del model, mparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = {k: _rel_l2(mesh_run["held"][k], v)
+           for k, v in plain_run["held"].items()}
+    equal = bool(np.array_equal(mesh_run["tokens"], plain_run["tokens"]))
+    repeat = (bool(np.array_equal(again["tokens"], plain_run["tokens"]))
+              and all(torch.equal(again["held"][k], v)
+                      for k, v in plain_run["held"].items()))
+    out = {"mesh": "1x1 (data, model), nccl", "steps": MESH_STEPS,
+           "weight_leaves_dtensor_views": views,
+           "prefill_ms": mesh_run["prefill_ms"],
+           "plain_prefill_ms": plain_run["prefill_ms"],
+           "decode_ms_per_tok": mesh_run["decode_ms_per_tok"],
+           "plain_decode_ms_per_tok": plain_run["decode_ms_per_tok"],
+           "prefill_device_ms": times["mesh"][0],
+           "plain_prefill_device_ms": times["plain"][0],
+           "decode_device_ms_per_step": times["mesh"][1],
+           "plain_decode_device_ms_per_step": times["plain"][1],
+           "launches": launches, "k1_launches_expected": k1,
+           "rel_l2_vs_plain": rel, "tokens_equal_plain": equal,
+           "plain_repeat_bit_equal": repeat,
+           "sample": mesh_run["tokens"][0, :8].tolist(),
+           "k1_local_heads": held, "seconds": time.perf_counter() - t0,
+           "stage_seconds": dict(zip(("warm", "generate", "profile"),
+                                     np.diff(stage).tolist()))}
+    bad = []
+    if not views:
+        bad.append("a mesh weight leaf is not a DTensor view of the plain "
+                   "run's")
+    if not repeat:
+        bad.append("a second plain run differs from the first")
+    if not equal:
+        bad.append(f"mesh tokens {mesh_run['tokens'][:, :8]} differ from "
+                   f"the plain path's {plain_run['tokens'][:, :8]}")
+    bad += [f"mesh {k} relative L2 {v} from the plain path's > "
+            f"{LOGITS_REL_L2}" for k, v in rel.items()
+            if not v <= LOGITS_REL_L2]
+    if launches["flash_attention"] != k1:
+        bad.append(f"K1 launched {launches['flash_attention']} times in the "
+                   f"mesh run's prefill; expected {k1}")
+    if held is not None and not held["ok"]:
+        bad.append(f"K1 on the mesh path's local heads disagrees with its "
+                   f"plain version: {held}")
+    out["failures"] = bad
+    return out
+
+
 # checks a model of the zoo runs on the engine's weights after the common
 # ones
 EXTRA_CHECKS = {"qwen2-vl-72b": mrope_grid_check,
@@ -3260,13 +3467,20 @@ def serve_model(arch: str, layers, prompt: int, gen: int, held: int,
     decode_rel = check["decode_rel_l2"][:held]
     extra = EXTRA_CHECKS.get(arch)
     extra = extra(cfg, params, batch) if extra else None
+    mesh = None
+    if arch in MESH_ARCHS:
+        mesh = mesh_rerun(cfg, params, {"tokens": batch},
+                          {"tokens": batch[:, -64:]}, _decoder_generate,
+                          _decoder_profile, k1[0])
 
-    # where the time goes: one profiled prefill and 4 decode steps
+    # where the time goes: one profiled prefill and 4 decode steps (the
+    # device's activity: the kernels' time and names is what is read)
     n_prof = 4
     handoff, pre_dev, pre_kernels = profile_device(
-        lambda: engine.prefill(reqs), attempts=3)
+        lambda: engine.prefill(reqs), attempts=3, cpu=False)
     _, dec_dev, _ = profile_device(lambda: engine.decode(
-        dataclasses.replace(handoff, max_new=n_prof)), attempts=3)
+        dataclasses.replace(handoff, max_new=n_prof)), attempts=3,
+        cpu=False)
     del handoff
     dec_dev = ratio(dec_dev, n_prof)
     r0 = results[0]
@@ -3293,7 +3507,7 @@ def serve_model(arch: str, layers, prompt: int, gen: int, held: int,
            "decode_held": held, "decode_rel_l2_max": max(decode_rel,
                                                          default=None),
            "decode_gap_ratio_bound": DECODE_GAP_RATIO,
-           "check": check, "extra_check": extra,
+           "check": check, "extra_check": extra, "mesh": mesh,
            "logits_rel_l2_bound": LOGITS_REL_L2,
            "tokens_ok": bool(tokens_ok), "sample": r0.tokens[:8]}
     del engine, params
@@ -3326,6 +3540,8 @@ def serve_model(arch: str, layers, prompt: int, gen: int, held: int,
                    f"{check['forward_gap_to_fp32']}")
     if extra:
         bad += extra["failures"]
+    if mesh:
+        bad += [f"mesh: {f}" for f in mesh["failures"]]
     out["failures"] = bad
     return out
 
@@ -3358,12 +3574,13 @@ def whisper_generate(model, params, frames, steps: int) -> dict:
     fed, logits = [tok], []
     for s in range(steps):
         out, cache = model.decode(params, cache, tok, s)
+        out = _whole(out)
         tok = out.argmax(-1)
         fed.append(tok)
         logits.append(out)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    return {"enc": enc, "cache": cache, "tokens": torch.cat(fed, 1),
+    return {"enc": _whole(enc), "cache": cache, "tokens": torch.cat(fed, 1),
             "logits": logits, "prefill_ms": (t1 - t0) * 1e3,
             "decode_ms_per_tok": (t2 - t1) * 1e3 / steps}
 
@@ -3450,6 +3667,10 @@ def serve_whisper() -> dict:
                 model.decode(params, cache, tok, s)
         _, dec_dev, _ = profile_device(decode_steps)
         del cache
+    mesh = mesh_rerun(cfg, params, frames, frames[:1, :256],
+                      _whisper_mesh_generate, _whisper_profile,
+                      WHISPER["k1"][0], hold=functools.partial(
+                          k1_local_heads, frames=frames))
     dec_dev = ratio(dec_dev, n_prof)
     counted = (launches["flash_attention"],
                launches["flash_attention_windowed"])
@@ -3469,7 +3690,7 @@ def serve_whisper() -> dict:
            "launches_per_prefill": counted[0],
            "windowed_launches_per_prefill": counted[1],
            "launches_expected": list(WHISPER["k1"]), "check": check,
-           "logits_rel_l2_bound": LOGITS_REL_L2,
+           "mesh": mesh, "logits_rel_l2_bound": LOGITS_REL_L2,
            "sample": tokens[0, :8].tolist()}
     del model, params, frames
     gc.collect()
@@ -3503,6 +3724,7 @@ def serve_whisper() -> dict:
     if check["decode_rel_l2_max"] > LOGITS_REL_L2:
         bad.append(f"decode logits differ from the eager forward's: "
                    f"{check['decode_rel_l2']}")
+    bad += [f"mesh: {f}" for f in mesh["failures"]]
     out["failures"] = bad
     return out
 
@@ -3625,7 +3847,18 @@ def phase_models() -> dict:
     if start > MODELS_START_BYTES:
         raise AssertionError(f"{start / 1e9:.2f} GB still allocated on the "
                              f"card before gemma3-27b's weights are drawn")
-    runs = [serve_model(*m) for m in MODELS] + [serve_whisper()]
+    runs = []
+    for run in [functools.partial(serve_model, *m) for m in MODELS] + [
+            serve_whisper]:
+        t0 = time.perf_counter()
+        runs.append(run())
+        r = runs[-1]
+        r["seconds"] = time.perf_counter() - t0
+        # progress on stderr: the phase's line comes after every model
+        print(json.dumps({"models": r["arch"], "seconds": r["seconds"],
+                          "mesh_seconds": (r.get("mesh") or {}).get(
+                              "seconds"), "failures": r["failures"]}),
+              file=sys.stderr, flush=True)
     gemma = runs[0]
     k1 = gemma_k1_rows({
         "local": gemma["windowed_launches_per_prefill"],
@@ -3677,7 +3910,7 @@ def kernels_line(kern: dict, serve: dict, offload: dict, paged: dict,
                  heimdall: dict, models: dict, mesh: dict) -> dict:
     """Every ported kernel: launches on its main paths (K1: the HBM and the
     offloaded engines' counted runs, the mesh path's and the models
-    phase's; P1-P4: the
+    phase's, its mesh reruns included; P1-P4: the
     micro family's), agreement with its plain version, its times at the
     main path's shape, and its share of its bound (bound over device time,
     or over event time where the profiler recorded none). K1 has a row at
@@ -3696,7 +3929,9 @@ def kernels_line(kern: dict, serve: dict, offload: dict, paged: dict,
         "launches": serve["launches"]["flash_attention"]
         + offload["launches"]["flash_attention"]
         + mesh["launches"]["flash_attention"]
-        + sum(r["launches"]["flash_attention"] for r in models["runs"]),
+        + sum(r["launches"]["flash_attention"]
+              + (r["mesh"]["launches"]["flash_attention"] if r.get("mesh")
+                 else 0) for r in models["runs"]),
         "matched": all(c["ok"] for c in kern["cases"]),
         "max_abs_err": yi["max_abs_err"],
         "ms": yi["kernel_ms"], **_device_cols(yi),
@@ -3707,10 +3942,13 @@ def kernels_line(kern: dict, serve: dict, offload: dict, paged: dict,
     for name, arch in (("whisper_encoder", "whisper-small"),
                        ("qwen2vl_prefill", "qwen2-vl-72b")):
         t = kern["model_shapes"][name]
+        run = by_arch[arch]
         rows.append({
             "name": f"flash_attention/{name}", "route": "cuda",
             "source": k1_source, "replaces": k1_replaces,
-            "launches": by_arch[arch]["launches"]["flash_attention"],
+            "launches": run["launches"]["flash_attention"] + (
+                run["mesh"]["launches"]["flash_attention"] if run.get("mesh")
+                else 0),
             "matched": all(c["ok"] for c in kern["cases"]
                            if c["shape"] == t["shape"]),
             "max_abs_err": t["max_abs_err"], "shape": t["shape"],

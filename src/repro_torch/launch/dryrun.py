@@ -31,6 +31,8 @@ Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-72b --shape decode_32k \\
       --multi-pod
   python -m repro_torch.launch.dryrun --all            # every cell, 1 pod
+  python -m repro_torch.launch.dryrun --all --arch zamba2-7b --multi-pod \
+      --microbatches 1                                   # one arch's cells
   python -m repro_torch.launch.dryrun --arch yi-9b --shape prefill_32k \\
       --mesh-shape 1x1 --batch 4 --seq 1024 --attention-kernel kernel
 """
@@ -291,9 +293,10 @@ def main(argv=None):
     kw = dict(q_chunk=args.q_chunk, save_hlo=args.save_hlo,
               device_type=args.device, mesh_shape=mesh_shape,
               batch=args.batch, seq=args.seq,
-              attention_kernel=args.attention_kernel)
+              attention_kernel=args.attention_kernel,
+              microbatches=args.microbatches)
     if args.all:
-        for arch in list_archs():
+        for arch in ([args.arch] if args.arch else list_archs()):
             for shape_name in SHAPES:
                 run_and_save(arch, shape_name, args.multi_pod, **kw)
     else:
@@ -302,8 +305,7 @@ def main(argv=None):
         rec = run_and_save(args.arch, args.shape, args.multi_pod,
                            serve_2d=args.serve_2d,
                            compress_pod=args.compress_pod_grads,
-                           microbatches=args.microbatches, tag=args.tag,
-                           **kw)
+                           tag=args.tag, **kw)
         if rec["status"] not in ("ok",) and not rec["status"].startswith(
                 "skip"):
             raise SystemExit(1)

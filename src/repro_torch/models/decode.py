@@ -11,10 +11,11 @@ and returns its output (not logits) with a zeroed self cache and each
 decoder layer's cross K/V of the encoder's output; ``decode_step`` then
 runs the decoder one token at a time, reading the cross cache only.
 
-With a mesh the cache leaves are DTensors, sequence-sharded as the rules
-say (``act_cache_seq``), and the attention archs decode through
-``models/tp.attn_block_dec``; logits come back vocab-sharded
-(``act_vocab``).
+With a mesh the cache leaves are DTensors placed as the rules say (the
+K/V and latents sequence-sharded, ``act_cache_seq``; recurrent states by
+head, ``act_heads``), every arch decodes through the blocks of
+``models/tp.py`` and ``models/tp_recurrent.py``, and logits come back
+vocab-sharded (``act_vocab``) where ``model`` divides the vocabulary.
 """
 
 from __future__ import annotations
@@ -24,17 +25,20 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.models import kvcache, tp
+from repro_torch.models import kvcache, tp, tp_recurrent
 from repro_torch.models.attention import (_proj_heads, attn_decode,
                                           attn_decode_cross, mla_decode)
 from repro_torch.models.context import MCtx
 from repro_torch.models.layers import (embed_tokens, mlp_apply, rmsnorm,
                                        sinusoidal_pos_emb, unembed)
 from repro_torch.models.moe import moe_ffn
-from repro_torch.models.params import stack_specs, torch_dtype, tree_map
+from repro_torch.models.params import (map_specs, stack_specs, torch_dtype,
+                                      tree_map)
+from repro_torch.models.sharding import local_shape
 from repro_torch.models.ssm import ssm_decode
-from repro_torch.models.transformer import (Seg, encode, forward_hidden,
-                                            layer_views, segment_plan)
+from repro_torch.models.transformer import (Seg, _with_positions, encode,
+                                            forward_hidden, layer_views,
+                                            segment_plan)
 from repro_torch.models.xlstm import mlstm_decode, slstm_decode
 
 WHISPER_CROSS_LEN = 1500   # 30 s of audio at the whisper frame rate
@@ -81,10 +85,12 @@ def _attn_block_dec(p, x, pos, cache, cfg, mctx, *, window, moe=False):
     return x + f
 
 
-def _recurrent_dec(step, key: str):
+def _recurrent_dec(step, key: str, kind: str):
     """A residual block around a recurrent cell's decode step that copies
     the cell's new state into ``cache`` (views of the stacked cache)."""
-    def block(p, x, cache, cfg):
+    def block(p, x, cache, cfg, mctx: MCtx):
+        if mctx.mesh is not None:
+            return tp_recurrent.block_dec(kind, p, x, cache, cfg, mctx)
         out, new = step(p[key], rmsnorm(x, p["ln"], cfg.norm_eps), cache,
                         cfg)
         tree_map(lambda old, nw: old.copy_(nw), cache, new)
@@ -92,9 +98,9 @@ def _recurrent_dec(step, key: str):
     return block
 
 
-_mamba_block_dec = _recurrent_dec(ssm_decode, "ssm")
-_mlstm_block_dec = _recurrent_dec(mlstm_decode, "cell")
-_slstm_block_dec = _recurrent_dec(slstm_decode, "cell")
+_mamba_block_dec = _recurrent_dec(ssm_decode, "ssm", "mamba")
+_mlstm_block_dec = _recurrent_dec(mlstm_decode, "cell", "mlstm")
+_slstm_block_dec = _recurrent_dec(slstm_decode, "cell", "slstm")
 
 
 # --------------------------------------------------------------------------
@@ -120,21 +126,25 @@ def seg_decode(p, cache, x, pos, cfg: ModelConfig, mctx: MCtx, seg: Seg,
         elif seg.kind == "zamba":
             for ll, cl in zip(layer_views(lp["mamba"], seg.sub),
                               layer_views(lc["mamba"], seg.sub)):
-                x = _mamba_block_dec(ll, x, cl, cfg)
+                x = _mamba_block_dec(ll, x, cl, cfg, mctx)
             sa = shared_attn
+            if mctx.mesh is not None:
+                x = tp.attn_block_dec(sa, x, pos, lc["attn"], cfg, mctx,
+                                      window=0)
+                continue
             h = rmsnorm(x, sa["ln1"], cfg.norm_eps)
             a, _ = attn_decode(sa["attn"], h, pos, lc["attn"], cfg)
             x = x + a
             x = x + mlp_apply(sa["mlp"], rmsnorm(x, sa["ln2"], cfg.norm_eps))
         elif seg.kind == "mamba":
-            x = _mamba_block_dec(lp, x, lc, cfg)
+            x = _mamba_block_dec(lp, x, lc, cfg, mctx)
         elif seg.kind == "xlstm":
             for ll, cl in zip(layer_views(lp["mlstm"], seg.sub),
                               layer_views(lc["mlstm"], seg.sub)):
-                x = _mlstm_block_dec(ll, x, cl, cfg)
-            x = _slstm_block_dec(lp["slstm"], x, lc["slstm"], cfg)
+                x = _mlstm_block_dec(ll, x, cl, cfg, mctx)
+            x = _slstm_block_dec(lp["slstm"], x, lc["slstm"], cfg, mctx)
         elif seg.kind == "xlstm_tail":
-            x = _mlstm_block_dec(lp, x, lc, cfg)
+            x = _mlstm_block_dec(lp, x, lc, cfg, mctx)
         else:
             raise ValueError(seg.kind)
     return x, cache
@@ -210,6 +220,18 @@ def prefill(params, cfg: ModelConfig, mctx: MCtx, batch: dict,
     return logits, caches
 
 
+def zeros_cache(s, mctx: MCtx, device) -> torch.Tensor:
+    """A zeroed cache leaf of spec ``s``: on a mesh a DTensor placed by the
+    rules, each rank holding zeros of its shard only."""
+    dt = torch_dtype(s.dtype)
+    if mctx.mesh is None:
+        return torch.zeros(s.shape, dtype=dt, device=device)
+    pl = tp.act(mctx, s.axes, s.shape)
+    local = torch.zeros(local_shape(s.shape, pl, mctx.mesh), dtype=dt,
+                        device=device)
+    return DTensor.from_local(local, mctx.mesh, pl, run_check=False)
+
+
 def _whisper_prefill(params, cfg: ModelConfig, mctx: MCtx, batch: dict,
                      max_decode_len: int = 1024, q_chunk: int = 512):
     """The encoder over ``batch["frames"]`` (B, S_enc, d). Returns (the
@@ -219,14 +241,20 @@ def _whisper_prefill(params, cfg: ModelConfig, mctx: MCtx, batch: dict,
     enc_out = encode(params, cfg, mctx, batch["frames"], q_chunk=q_chunk)
     B = enc_out.shape[0]
     dec = params["decoder"]
+    specs = cache_specs(cfg, mctx, B, max_decode_len)["decoder"]
+    self_c = map_specs(lambda s: zeros_cache(s, mctx, enc_out.device),
+                       specs["self"])
+    if mctx.mesh is not None:
+        axes = specs["cross"]["k"].axes[1:]
+        cross = {name: tp.stack([
+            mctx.constrain(tp._proj(mctx, enc_out, w,
+                                    ("embed", "kv_heads", None)), axes)
+            for w in tp.unbind(dec["xattn"][key])])
+            for name, key in (("k", "w_k"), ("v", "w_v"))}
+        return enc_out, {"decoder": {"self": self_c, "cross": cross}}
     cross = {name: torch.stack([_proj_heads(enc_out, w)
                                 for w in torch.unbind(dec["xattn"][key])])
              for name, key in (("k", "w_k"), ("v", "w_v"))}
-    Hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
-    shape = (cfg.num_layers, B, max_decode_len, Hkv, dh)
-    dt = torch_dtype(cfg.dtype)
-    self_c = {"k": torch.zeros(shape, dtype=dt, device=enc_out.device),
-              "v": torch.zeros(shape, dtype=dt, device=enc_out.device)}
     return enc_out, {"decoder": {"self": self_c, "cross": cross}}
 
 
@@ -275,12 +303,21 @@ def decode_step(params, cfg: ModelConfig, mctx: MCtx, cache: dict,
 
 def _decode_step_mesh(params, cfg: ModelConfig, mctx: MCtx, cache: dict,
                       tokens, pos: int):
-    tp.check_mesh(cfg)
     x = tp.embed(mctx, params["embed"]["tok"], tokens, torch_dtype(cfg.dtype))
     x = mctx.constrain(x, ("act_batch", None, "act_embed"))
-    for seg in segment_plan(cfg):
-        x, cache[seg.name] = seg_decode(params[seg.name], cache[seg.name], x,
-                                        pos, cfg, mctx, seg)
+    if cfg.encoder_decoder:
+        x = _with_positions(x, sinusoidal_pos_emb(
+            torch.full((1,), pos, device=x.device), cfg.d_model).to(x.dtype),
+            mctx)
+        for lp, lc in zip(layer_views(params["decoder"], cfg.num_layers),
+                          layer_views(cache["decoder"], cfg.num_layers)):
+            x = tp.cross_block_dec(lp, x, pos, lc, cfg, mctx)
+    else:
+        shared = params.get("shared_attn")
+        for seg in segment_plan(cfg):
+            x, cache[seg.name] = seg_decode(params[seg.name],
+                                            cache[seg.name], x, pos, cfg,
+                                            mctx, seg, shared_attn=shared)
     x = tp.rms_norm(mctx, x, params["final_norm"], cfg.norm_eps)
     logits = tp.unembed(mctx, params["embed"], x, cfg.tie_embeddings)
     logits = mctx.constrain(logits, ("act_batch", None, "act_vocab"))

@@ -22,14 +22,13 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor
 
 from repro_torch.config.base import ModelConfig, ParallelConfig
 from repro_torch.models import params as pm
 from repro_torch.models.context import MCtx, resolve_device
-from repro_torch.models.decode import cache_specs, decode_step, prefill
-from repro_torch.models.sharding import (distribute, local_shape,
-                                         named_sharding)
+from repro_torch.models.decode import (cache_specs, decode_step, prefill,
+                                      zeros_cache)
+from repro_torch.models.sharding import distribute, named_sharding
 from repro_torch.models.transformer import loss_fn, model_specs
 
 
@@ -126,17 +125,8 @@ class Model(nn.Module):
         return _as_dict(self.tree)
 
     def init_cache(self, B: int, S: int) -> dict:
-        def zeros(s: pm.ParamSpec):
-            if self.mctx.mesh is None:
-                return torch.zeros(s.shape, dtype=pm.torch_dtype(s.dtype),
-                                   device=self.device)
-            pl = self.param_sharding(s).placements
-            local = torch.zeros(local_shape(s.shape, pl, self.mctx.mesh),
-                                dtype=pm.torch_dtype(s.dtype),
-                                device=self.device)
-            return DTensor.from_local(local, self.mctx.mesh, list(pl),
-                                      run_check=False)
-        return pm.map_specs(zeros, cache_specs(self.cfg, self.mctx, B, S))
+        return pm.map_specs(lambda s: zeros_cache(s, self.mctx, self.device),
+                            cache_specs(self.cfg, self.mctx, B, S))
 
     # -- steps ----------------------------------------------------------------
     def loss(self, params, batch):

@@ -15,10 +15,17 @@ Two bodies, as in the reference, picked by ``use_ep`` on a mesh
 
 Without a mesh, ``moe_ffn`` is the EP body's arithmetic over a group of
 one, which the reference's one-device mesh runs: route all B * S tokens,
-fill each expert's ``C`` slots in token order, run the experts,
-scatter-add the gated outputs back. Which tokens drop is the reference's: a
-stable argsort of the flattened expert ids, ties kept in (token, slot)
-order.
+fill each expert's ``C`` slots in token order, run the experts, add the
+gated outputs back. Which tokens drop is the reference's: a stable argsort
+of the flattened expert ids, ties kept in (token, slot) order.
+
+The combine adds each token's ``k`` gated outputs one after another in
+ascending expert order, the order in which the reference's scatter-add
+(``.at[st].add`` over the sorted pairs) meets them, rounding after each
+add. It is a gather and ``k`` additions, not a scatter-add: on CUDA
+``index_add_`` adds through atomics in whatever order they land, so two
+runs on the same inputs (and a mesh body beside the plain path) differed
+in the last bits of a bf16 sum, which can flip a greedy token.
 """
 
 from __future__ import annotations
@@ -145,23 +152,31 @@ def _expert_ffn(toks: torch.Tensor, w_gate: torch.Tensor,
 def _routed(x_tok: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig,
             C: int, experts):
     """Route ``x_tok`` (T, d), fill each expert's ``C`` slots, run
-    ``experts`` on the (E, C, d) buffer, combine. Returns (y (T, d), aux,
-    the (token, slot) pairs dropped)."""
+    ``experts`` on the contiguous (E, C, d) buffer, combine. Returns (y (T,
+    d), aux, the (token, slot) pairs dropped)."""
     e = cfg.moe
-    E = e.num_experts
+    E, k = e.num_experts, e.top_k
     T, d = x_tok.shape
-    gates, eids, probs = _route(x_tok, router_w, e.top_k)
+    gates, eids, probs = _route(x_tok, router_w, k)
     aux = _aux_loss(probs, eids, E)
     se, st, pos, keep, order = _dispatch_indices(eids, E, C)
-    # dropped pairs land in slot C, one past the expert's buffer, which no
-    # expert reads; zeros are read back from there
-    buf = torch.zeros((E, C + 1, d), dtype=x_tok.dtype, device=x_tok.device)
-    buf = buf.index_put((se, pos), x_tok[st])
-    out_buf = experts(buf[:, :C])
-    vals = F.pad(out_buf, (0, 0, 0, 1))[se, pos]
-    w = (gates.reshape(-1)[order] * keep).to(x_tok.dtype)
-    y = torch.zeros((T, d), dtype=x_tok.dtype, device=x_tok.device)
-    y = y.index_add(0, st, vals * w[:, None])
+    # each pair's row of the flat buffer: dropped pairs land in row E * C,
+    # one past the experts' rows, which no expert reads and which reads
+    # back as zeros (no boolean indexing, so no sync with the host)
+    rows = torch.where(keep, se * C + pos, E * C)
+    buf = torch.zeros((E * C + 1, d), dtype=x_tok.dtype, device=x_tok.device)
+    buf[rows] = x_tok[st]
+    out = experts(buf[:E * C].view(E, C, d)).reshape(E * C, d)
+    out = F.pad(out, (0, 0, 0, 1))
+    # back to (token, slot) order, then each token's slots by expert
+    pair_rows = torch.empty_like(rows)
+    pair_rows[order] = rows
+    by_e = torch.argsort(eids, dim=1)
+    pair_rows = pair_rows.view(T, k).gather(1, by_e)
+    w = gates.gather(1, by_e).to(x_tok.dtype)
+    y = out[pair_rows[:, 0]] * w[:, :1]
+    for s in range(1, k):
+        y = y + out[pair_rows[:, s]] * w[:, s:s + 1]
     return y, aux, (~keep).sum()
 
 
@@ -247,28 +262,16 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, mctx=None
         from repro_torch.models.tp import moe_ffn as mesh_moe_ffn
         return mesh_moe_ffn(p, x, cfg, mctx)
     e = cfg.moe
-    E = e.num_experts
     B, S, d = x.shape
     T = B * S
-    x_tok = x.reshape(T, d)
-    gates, eids, probs = _route(x_tok, p["router"], e.top_k)
-    aux = _aux_loss(probs, eids, E)
-    C = _capacity(T, e.top_k, E, e.capacity_factor)
-    se, st, pos, keep, order = _dispatch_indices(eids, E, C)
-    # dropped pairs all land in slot C, one past the expert's buffer, which
-    # no expert reads (no boolean indexing, so no sync with the host)
-    buf = torch.zeros((E, C + 1, d), dtype=x.dtype, device=x.device)
-    buf[se, pos] = x_tok[st]
-    out_buf = _expert_ffn(buf[:, :C], p["w_gate"], p["w_up"], p["w_down"])
-    # and read zeros back from there, as the reference's fill
-    vals = F.pad(out_buf, (0, 0, 0, 1))[se, pos]
-    w = (gates.reshape(-1)[order] * keep).to(x.dtype)
-    y = torch.zeros((T, d), dtype=x.dtype, device=x.device)
-    y.index_add_(0, st, vals * w[:, None])
+    C = _capacity(T, e.top_k, e.num_experts, e.capacity_factor)
+    y, aux, dropped = _routed(
+        x.reshape(T, d), p["router"], cfg, C,
+        lambda buf: _expert_ffn(buf, p["w_gate"], p["w_up"], p["w_down"]))
     y = y.reshape(B, S, d)
     stats = getattr(mctx, "stats", None)
     if stats is not None:
-        stats["moe_dropped"] = stats.get("moe_dropped", 0) + (~keep).sum()
+        stats["moe_dropped"] = stats.get("moe_dropped", 0) + dropped
 
     if e.num_shared_experts:
         sp = p["shared"]

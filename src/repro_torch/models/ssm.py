@@ -103,11 +103,17 @@ def _ssd_chunked(xh: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
     return torch.cat(ys, dim=1), state
 
 
+def _norm(p: dict, y: torch.Tensor, cfg: ModelConfig, norm) -> torch.Tensor:
+    return rmsnorm(y, p["norm"], cfg.norm_eps) if norm is None else norm(y)
+
+
 def ssm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                chunk: int = 512) -> tuple[torch.Tensor, dict]:
-    """Train/prefill Mamba2 block. x: (B, S, d). Returns (out, cache)."""
+                chunk: int = 512, norm=None) -> tuple[torch.Tensor, dict]:
+    """Train/prefill Mamba2 block. x: (B, S, d). Returns (out, cache). The
+    heads are those of ``w_dt`` (a mesh rank's own); ``norm`` replaces the
+    rmsnorm over the inner width (the mesh path's, over a split width)."""
     Bsz, S, d = x.shape
-    H, P = cfg.ssm_heads, cfg.ssm_head_dim
+    H, P = p["w_dt"].shape[-1], cfg.ssm_head_dim
     dt_ = x.dtype
     z = x @ p["w_z"].to(dt_)
     xs_raw = x @ p["w_x"].to(dt_)
@@ -126,8 +132,7 @@ def ssm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
     y = y.to(dt_) + xh * p["D"].to(dt_)[None, None, :, None]
     y = y.reshape(Bsz, S, H * P)
     y = y * F.silu(z)
-    y = rmsnorm(y, p["norm"], cfg.norm_eps)
-    out = y @ p["w_out"].to(dt_)
+    out = _norm(p, y, cfg, norm) @ p["w_out"].to(dt_)
 
     # conv cache: the last K-1 pre-activation channel inputs (the
     # reference computes the same products again for them)
@@ -139,11 +144,11 @@ def ssm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def ssm_decode(p: dict, x: torch.Tensor, cache: dict,
-               cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+               cfg: ModelConfig, norm=None) -> tuple[torch.Tensor, dict]:
     """One-step SSD recurrence. x: (B, 1, d). Returns (out, new cache);
-    ``cache`` is left as it is."""
+    ``cache`` is left as it is. Heads and ``norm`` as in ``ssm_forward``."""
     Bsz = x.shape[0]
-    H, P = cfg.ssm_heads, cfg.ssm_head_dim
+    H, P = p["w_dt"].shape[-1], cfg.ssm_head_dim
     dt_ = x.dtype
     x0 = x[:, 0]
     z = x0 @ p["w_z"].to(dt_)
@@ -170,7 +175,6 @@ def ssm_decode(p: dict, x: torch.Tensor, cache: dict,
     y = torch.einsum("bhpn,bn->bhp", state, Cm.float())
     y = y.to(dt_) + xh.to(dt_) * p["D"].to(dt_)[None, :, None]
     y = y.reshape(Bsz, H * P) * F.silu(z)
-    y = rmsnorm(y, p["norm"], cfg.norm_eps)
-    out = (y @ p["w_out"].to(dt_))[:, None, :]
+    out = (_norm(p, y, cfg, norm) @ p["w_out"].to(dt_))[:, None, :]
     return out, {"state": state, "conv_x": conv_x,
                  "conv_B": conv_B, "conv_C": conv_C}

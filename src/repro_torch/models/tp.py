@@ -25,21 +25,31 @@ The gradient of a replicated input of a body is summed over a mesh axis
 input or output of the body is sharded or partial over it); otherwise every
 rank along it computes the same gradient (``Replicate``).
 
-Archs with recurrent state (Mamba2, xLSTM, zamba2), MLA (deepseek-v3) and
-the encoder-decoder (whisper) have no mesh path here: ``check_mesh`` raises
-with the arch's name.
+Every arch runs on a mesh. Here: the attention archs' blocks, MLA
+(deepseek-v3: the latents computed whole on every rank, the up-projections
+and ``w_o`` on local heads; decode in the absorbed form against a
+sequence-sharded latent cache), cross-attention and the ungated MLP
+(whisper's encoder and decoder), and the MoE bodies; the recurrent cells
+(Mamba2, mLSTM, sLSTM) are in ``models/tp_recurrent.py``. Where ``model``
+does not divide the heads (whisper-small's 12 over 16) or the vocabulary
+(51865), the weights stay whole on ``model`` and every rank computes every
+head or every logit.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.config.base import ModelConfig, ParallelConfig
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.launch.mesh import DATA_AXIS, MODEL_AXIS, shard_map
+from repro_torch.models import attention
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import (NEG_INF, _gqa_ctx, _gqa_scores,
                                           chunked_attention,
@@ -53,21 +63,6 @@ _all_gather = getattr(funcol, "all_gather_single", funcol.all_gather_tensor)
 
 _COMPUTE = ParallelConfig(fsdp=False, seq_parallel=False,
                           serve_2d_weights=False)
-
-
-def check_mesh(cfg: ModelConfig) -> None:
-    """Raise for an arch the mesh path does not run."""
-    why = None
-    if cfg.encoder_decoder:
-        why = "the encoder-decoder"
-    elif cfg.family in ("hybrid", "ssm"):
-        why = "recurrent blocks (Mamba2 / xLSTM)"
-    elif cfg.attn_type == "mla":
-        why = "MLA"
-    if why:
-        raise NotImplementedError(
-            f"{cfg.name}: the port's mesh path has no sharded {why}; run it "
-            f"without a mesh")
 
 
 # --------------------------------------------------------------------------
@@ -196,10 +191,59 @@ class _GatherOver(torch.autograd.Function):
         return g.chunk(ctx.n, ctx.gather_dim)[ctx.i], None, None, None
 
 
+class _ReduceOver(torch.autograd.Function):
+    """All-reduce (sum) over one mesh axis whose result each rank uses
+    for its own shard: each input's gradient is the sum of the results'."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim):
+        ctx.group = (mesh, dim)
+        return funcol.all_reduce(t, "sum", (mesh, dim))
+
+    @staticmethod
+    def backward(ctx, g):
+        return funcol.all_reduce(g, "sum", ctx.group), None, None
+
+
+class _GatherScatter(torch.autograd.Function):
+    """All-gather (tiled on ``gather_dim``) over one mesh axis whose result
+    each rank uses for its own part of the work: the gradient of a rank's
+    piece is its slice of the sum of the results' (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim, gather_dim):
+        ctx.group, ctx.gather_dim = (mesh, dim), gather_dim
+        return _all_gather(t.contiguous(), gather_dim, (mesh, dim))
+
+    @staticmethod
+    def backward(ctx, g):
+        return funcol.reduce_scatter_tensor(g.contiguous(), "sum",
+                                            ctx.gather_dim, ctx.group), \
+            None, None, None
+
+
 def sum_over(mctx, t, axis: str):
     if axis not in _names(mctx.mesh):
         return t
     return _SumOver.apply(t, mctx.mesh, _names(mctx.mesh).index(axis))
+
+
+def reduce_over(mctx, t, axis: str):
+    """``t`` summed over ``axis``, for a result each rank uses on its own
+    shard (a norm's sum of squares over a split dim)."""
+    if axis not in _names(mctx.mesh):
+        return t
+    return _ReduceOver.apply(t, mctx.mesh, _names(mctx.mesh).index(axis))
+
+
+def gather_split(mctx, t, axis: str, dim: int):
+    """``t``'s pieces over ``axis`` joined on ``dim``, for a result each
+    rank uses for its own part of the work (a recurrence on every head
+    whose output rows each rank projects its own columns of)."""
+    if axis not in _names(mctx.mesh):
+        return t
+    return _GatherScatter.apply(t, mctx.mesh, _names(mctx.mesh).index(axis),
+                                dim)
 
 
 def gather_over(mctx, t, axis: str, dim: int):
@@ -425,15 +469,21 @@ def _kv_span(Hq: int, Hkv: int, Hq_l: int, q0: int, Hkv_l: int, k0: int):
 
 
 def attn_forward(p: dict, h: DTensor, positions, cfg: ModelConfig, mctx, *,
-                 causal: bool, window: int, use_rope: bool, q_chunk: int):
-    """Self-attention on local heads. Returns (a, kv): ``a`` the
-    row-parallel output (partial over ``model``), kv the rope'd k and v."""
+                 causal: bool, window: int, use_rope: bool, q_chunk: int,
+                 x_kv: DTensor | None = None, kernel: bool | None = None):
+    """Self-attention on local heads, or cross-attention to ``x_kv``
+    (whisper's decoder, without rope). Returns (a, kv): ``a`` the
+    row-parallel output (partial over ``model`` where the heads are
+    split), kv the rope'd k and v. ``kernel`` (default: the mesh context's
+    ``attention_kernel``) takes the flash kernel where q and k are as
+    long, as the plain path does."""
     hax = ("act_batch", None, "act_heads", None)
+    src = h if x_kv is None else x_kv
     q = _proj(mctx, h, p["w_q"], ("embed", "heads", None),
               p.get("b_q"), ("heads", None))
-    k = _proj(mctx, h, p["w_k"], ("embed", "kv_heads", None),
+    k = _proj(mctx, src, p["w_k"], ("embed", "kv_heads", None),
               p.get("b_k"), ("kv_heads", None))
-    v = _proj(mctx, h, p["w_v"], ("embed", "kv_heads", None),
+    v = _proj(mctx, src, p["w_v"], ("embed", "kv_heads", None),
               p.get("b_v"), ("kv_heads", None))
     # pin heads to 'model' (TP), as the reference's attn_forward does
     q = mctx.constrain(q, hax)
@@ -462,7 +512,9 @@ def attn_forward(p: dict, h: DTensor, positions, cfg: ModelConfig, mctx, *,
                       (h.shape[0], h.shape[1], wo.shape[-1])))
     if heads_sharded:
         out_pl = _model_partial(mctx, out_pl)
-    use_kernel = mctx.parallel.attention_kernel == "kernel"
+    if kernel is None:
+        kernel = mctx.parallel.attention_kernel == "kernel"
+    use_kernel = kernel and q.shape[1] == k.shape[1]
 
     def f(q_, k_, v_, pos, wo_):
         if use_rope:
@@ -485,27 +537,40 @@ def attn_forward(p: dict, h: DTensor, positions, cfg: ModelConfig, mctx, *,
     return a, {"k": k, "v": v}
 
 
-def mlp(mctx, p: dict, h: DTensor) -> DTensor:
-    """Column- then row-parallel gated MLP; the output is partial over
-    ``model`` (the ungated one is whisper's, which has no mesh path)."""
+def mlp(mctx, p: dict, h: DTensor, gated: bool = True) -> DTensor:
+    """Column- then row-parallel MLP, gated, or whisper's ungated gelu one
+    with biases; the output is partial over ``model`` where the hidden dim
+    is split (``b_down`` counted on the first rank of ``model`` only)."""
     h = place(h, act(mctx, ("act_batch", None, None), _shape(h)))
-    axes = {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
-            "w_down": ("mlp", "embed")}
+    axes = ({"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+             "w_down": ("mlp", "embed")} if gated else
+            {"w_up": ("embed", "mlp"), "b_up": ("mlp",),
+             "w_down": ("mlp", "embed"), "b_down": (None,)})
     ins = [(h, h.placements)] + [(p[n], wpl(mctx, a, _shape(p[n])))
                                  for n, a in axes.items()]
-    sharded = _on_model(ins[-1][1], mctx.mesh)
+    sharded = _on_model(wpl(mctx, axes["w_down"], _shape(p["w_down"])),
+                        mctx.mesh)
     out_pl = _model_partial(mctx, h.placements) if sharded else list(
         h.placements)
+    # every rank uses b_down, so every rank's backward runs the same
+    # collectives; only the first rank of 'model' adds it
+    once = 1.0 if coord(mctx, MODEL_AXIS) == 0 or not sharded else 0.0
 
-    def f(x, wg, wu, wd):
+    def f(x, *ws):
         dt = x.dtype
-        return (F.silu(x @ wg.to(dt)) * (x @ wu.to(dt))) @ wd.to(dt)
+        if gated:
+            wg, wu, wd = ws
+            return (F.silu(x @ wg.to(dt)) * (x @ wu.to(dt))) @ wd.to(dt)
+        wu, bu, wd, bd = ws
+        y = F.gelu(x @ wu.to(dt) + bu.to(dt), approximate="tanh") @ wd.to(dt)
+        return y + bd.to(dt) * once
     return body(mctx, f, ins, [out_pl])
 
 
 def attn_block_fwd(p, x: DTensor, positions, cfg: ModelConfig, mctx, *,
                    window: int, moe: bool, causal: bool = True,
-                   use_rope: bool = True, q_chunk: int = 512):
+                   use_rope: bool = True, gated: bool = True,
+                   kernel: bool | None = None, q_chunk: int = 512):
     """The reference's ``_attn_block_fwd`` on the mesh: Megatron-SP, the
     sequence gathered at block entry (``sp_in``) and reduce-scattered back
     at exit (``sp_out``). Returns (x, kv, aux)."""
@@ -513,8 +578,13 @@ def attn_block_fwd(p, x: DTensor, positions, cfg: ModelConfig, mctx, *,
     sp_out = ("act_batch", "act_seq", "act_embed")
     h = rms_norm(mctx, x, p["ln1"], cfg.norm_eps)
     h = mctx.constrain(h, sp_in)
-    a, kv = attn_forward(p["attn"], h, positions, cfg, mctx, causal=causal,
-                         window=window, use_rope=use_rope, q_chunk=q_chunk)
+    if cfg.attn_type == "mla":
+        a, kv = mla_forward(p["attn"], h, positions, cfg, mctx,
+                            q_chunk=q_chunk)
+    else:
+        a, kv = attn_forward(p["attn"], h, positions, cfg, mctx,
+                             causal=causal, window=window, use_rope=use_rope,
+                             q_chunk=q_chunk, kernel=kernel)
     a = mctx.constrain(a, sp_out)
     x = add(mctx.constrain(x, sp_out), a)
     h2 = rms_norm(mctx, x, p["ln2"], cfg.norm_eps)
@@ -522,10 +592,75 @@ def attn_block_fwd(p, x: DTensor, positions, cfg: ModelConfig, mctx, *,
         f, aux = moe_ffn(p["moe"], h2, cfg, mctx)
     else:
         h2 = mctx.constrain(h2, sp_in)
-        f = mlp(mctx, p["mlp"], h2)
+        f = mlp(mctx, p["mlp"], h2, gated=gated)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     f = mctx.constrain(f, sp_out)
     return add(x, f), kv, aux
+
+
+def cross_block_fwd(p, x: DTensor, enc_out: DTensor, positions,
+                    cfg: ModelConfig, mctx, *, q_chunk: int = 512):
+    """whisper's decoder block: causal self-attention, cross-attention to
+    ``enc_out``, the ungated MLP, each pre-normed and added; both
+    attentions chunked, as the reference's (called without its mesh
+    context) are. Returns (x, {self, cross} K/V)."""
+    sp_in = ("act_batch", None, None)
+    sp_out = ("act_batch", "act_seq", "act_embed")
+
+    def part(ln, fn):
+        h = mctx.constrain(rms_norm(mctx, x, p[ln], cfg.norm_eps), sp_in)
+        out, kv = fn(h)
+        return add(mctx.constrain(x, sp_out), mctx.constrain(out, sp_out)), kv
+    x, kv = part("ln1", lambda h: attn_forward(
+        p["attn"], h, positions, cfg, mctx, causal=True, window=0,
+        use_rope=False, q_chunk=q_chunk, kernel=False))
+    x, xkv = part("ln_x", lambda h: attn_forward(
+        p["xattn"], h, positions, cfg, mctx, causal=False, window=0,
+        use_rope=False, q_chunk=q_chunk, x_kv=enc_out, kernel=False))
+    x, _ = part("ln2", lambda h: (mlp(mctx, p["mlp"], h, gated=False), None))
+    return x, {"self": kv, "cross": xkv}
+
+
+# --------------------------------------------------------------------------
+# MLA
+# --------------------------------------------------------------------------
+
+_MLA_KEYS = ("w_dq", "q_norm", "w_uq", "w_dkv", "kv_norm", "w_kr", "w_uk",
+             "w_uv", "w_o")
+
+
+def _mla_weights(p: dict, cfg: ModelConfig, mctx):
+    """MLA's weights in their compute layout (the up-projections and
+    ``w_o`` on local heads, the down-projections and norms whole), and
+    whether the heads are split over ``model``."""
+    specs = attention.mla_specs(cfg)
+    ins = [(p[k], wpl(mctx, specs[k].axes, specs[k].shape))
+           for k in _MLA_KEYS]
+    return ins, _on_model(ins[_MLA_KEYS.index("w_o")][1], mctx.mesh)
+
+
+def mla_forward(p: dict, h: DTensor, positions, cfg: ModelConfig, mctx, *,
+                q_chunk: int = 512):
+    """MLA prefill on local heads: every rank computes the latents (ckv,
+    k_rope) whole, then q, the up-projected K/V and ``w_o`` for its heads
+    (the plain path's ``mla_forward`` on the local weights). Returns (a
+    partial over ``model`` where the heads are split, the latents)."""
+    h = place(h, act(mctx, ("act_batch", None, None), _shape(h)))
+    ins, heads = _mla_weights(p, cfg, mctx)
+    pp = _pl(mctx, ("act_batch", None), _shape(positions))
+    B, S, d = h.shape
+    out_pl = act(mctx, ("act_batch", None, None), (B, S, d))
+    lat_pl = [list(out_pl)] * 2
+    if heads:
+        out_pl = _model_partial(mctx, out_pl)
+
+    def f(x, pos, *ws):
+        a, kv = attention.mla_forward(dict(zip(_MLA_KEYS, ws)), x, pos, cfg,
+                                      q_chunk=q_chunk)
+        return a, kv["ckv"], kv["k_rope"]
+    a, ckv, k_rope = body(mctx, f, [(h, h.placements), (positions, pp)]
+                          + ins, [out_pl] + lat_pl)
+    return a, {"ckv": ckv, "k_rope": k_rope}
 
 
 # --------------------------------------------------------------------------
@@ -536,6 +671,78 @@ def attn_block_fwd(p, x: DTensor, positions, cfg: ModelConfig, mctx, *,
 def _seq_dims(t: DTensor, dim: int = 1) -> list[int]:
     return [m for m, p in enumerate(t.placements)
             if isinstance(p, Shard) and p.dim == dim]
+
+
+def _chunks(mctx, cache: DTensor):
+    """A cache's sequence split: (the mesh dims that shard it, how many
+    chunks, this rank's first slot, its chunk's length)."""
+    seq = _seq_dims(cache)
+    crd = mctx.mesh.get_coordinate()
+    S = cache.shape[1]
+    n_chunks, chunk = 1, 0
+    for m in seq:
+        chunk = chunk * mctx.mesh.size(m) + crd[m]
+        n_chunks *= mctx.mesh.size(m)
+    if S % n_chunks:
+        raise ValueError(f"cache length {S} does not split {n_chunks} ways")
+    S_l = S // n_chunks
+    return seq, n_chunks, chunk * S_l, S_l
+
+
+def _same_batch(act_pl, cache_pl) -> None:
+    """The batch's placement must agree between activations and cache."""
+    bq = [isinstance(pl, Shard) and pl.dim == 0 for pl in act_pl]
+    bc = [isinstance(pl, Shard) and pl.dim == 0 for pl in cache_pl]
+    if bq != bc:
+        raise NotImplementedError(f"cache batch placement {cache_pl} vs "
+                                  f"activations {act_pl}")
+
+
+def _combine(mctx, s, seq, ctx_of):
+    """Flash-decoding over the mesh dims ``seq`` that split the keys: the
+    softmax of fp32 scores ``s`` (..., S_l), masked, as (context, sum):
+    ``ctx_of(e)`` of the exponentials against the global max, both summed
+    over ``seq``."""
+    m = s.amax(-1, keepdim=True)
+    for md in seq:
+        m = funcol.all_reduce(m, "max", (mctx.mesh, md))
+    e = torch.exp(s - m)
+    l_ = e.sum(-1, keepdim=True)
+    o = ctx_of(e)
+    for md in seq:
+        l_ = funcol.all_reduce(l_, "sum", (mctx.mesh, md))
+        o = funcol.all_reduce(o, "sum", (mctx.mesh, md))
+    return o, l_
+
+
+def _heads_out(mctx, ctx, wo_, q_sh: bool):
+    """This rank's heads of a (B, 1, H, dv) context through the
+    row-parallel ``w_o``."""
+    if q_sh:
+        H_l = ctx.shape[2] // mctx.model_size
+        r = coord(mctx, MODEL_AXIS)
+        ctx = ctx[:, :, r * H_l:(r + 1) * H_l]
+    H, dh, d = wo_.shape
+    return ctx.flatten(-2) @ wo_.reshape(H * dh, d).to(ctx.dtype)
+
+
+def _gqa_chunk(mctx, q_, kc_, vc_, valid, seq, n_chunks, scale=None):
+    """Decode attention of all heads' q (B, 1, Hq, dh) against this rank's
+    chunk of a (B, S_l, Hkv, dh) cache; one chunk takes the plain path's
+    arithmetic, more the flash-decoding combine."""
+    if n_chunks == 1:
+        return decode_attention(q_, kc_.to(q_.dtype), vc_.to(q_.dtype),
+                                valid, scale)
+    B, _, Hq, dh = q_.shape
+    Hkv = kc_.shape[2]
+    G = Hq // Hkv
+    qg = q_.reshape(B, 1, Hkv, G, dh)
+    scale = dh ** -0.5 if scale is None else scale
+    s = _gqa_scores(qg, kc_.to(q_.dtype)) * scale           # (B,Hkv,G,1,S_l)
+    s = torch.where(valid[None, None, None, None, :], s, NEG_INF)
+    o, l_ = _combine(mctx, s, seq, lambda e: _gqa_ctx(e, vc_.to(q_.dtype)))
+    # o: (B,1,Hkv,G,dh); l_: (B,Hkv,G,1,1) -> (B,1,Hkv,G,1)
+    return (o / l_.permute(0, 3, 1, 2, 4)).reshape(B, 1, Hq, dh).to(q_.dtype)
 
 
 def attn_decode(p: dict, h: DTensor, pos: int, cache: dict,
@@ -561,38 +768,13 @@ def attn_decode(p: dict, h: DTensor, pos: int, cache: dict,
     wop = wpl(mctx, ("heads", None, "embed"), _shape(wo))
     q_sh = _on_model(q.placements, mctx.mesh)
     kv_sh = _on_model(k_new.placements, mctx.mesh)
-    seq = _seq_dims(kc)
-    crd = mctx.mesh.get_coordinate()
+    seq, n_chunks, s0, S_l = _chunks(mctx, kc)
     S = kc.shape[1]
-    n_chunks = 1
-    chunk = 0
-    for m in seq:
-        chunk = chunk * mctx.mesh.size(m) + crd[m]
-        n_chunks *= mctx.mesh.size(m)
-    if S % n_chunks:
-        raise ValueError(f"cache length {S} does not split {n_chunks} ways")
-    S_l = S // n_chunks
-    s0 = chunk * S_l
     slot = pos % S if window > 0 else pos
-    Hq = q.shape[2]
-    Hq_l = Hq // mctx.model_size if q_sh else Hq
-    r = coord(mctx, MODEL_AXIS)
     out_pl = act(mctx, ("act_batch", None, None), _shape(h))
     if _on_model(wop, mctx.mesh):
         out_pl = _model_partial(mctx, out_pl)
-    # the batch's placement must agree between activations and cache
-    bq = [isinstance(pl, Shard) and pl.dim == 0 for pl in q.placements]
-    bc = [isinstance(pl, Shard) and pl.dim == 0 for pl in kc.placements]
-    if bq != bc:
-        raise NotImplementedError(f"cache batch placement {kc.placements} "
-                                  f"vs activations {q.placements}")
-
-    def out_proj(ctx, wo_):
-        """This rank's heads of the context through the row-parallel w_o."""
-        if q_sh:
-            ctx = ctx[:, :, r * Hq_l:(r + 1) * Hq_l]
-        H, dh, d = wo_.shape
-        return ctx.flatten(-2) @ wo_.reshape(H * dh, d).to(ctx.dtype)
+    _same_batch(q.placements, kc.placements)
 
     def f(q_, kn, vn, kc_, vc_, wo_):
         B = q_.shape[0]
@@ -615,29 +797,109 @@ def attn_decode(p: dict, h: DTensor, pos: int, cache: dict,
         valid = idx <= pos
         if window > 0 and pos >= S:
             valid = torch.ones_like(valid)      # ring: all valid once wrapped
-        if n_chunks == 1:   # the whole cache here: the plain path's arithmetic
-            return out_proj(decode_attention(q_, kc_.to(q_.dtype),
-                                             vc_.to(q_.dtype), valid), wo_)
-        Hkv, dh = kc_.shape[2], kc_.shape[3]
-        G = Hq // Hkv
-        qg = q_.reshape(B, 1, Hkv, G, dh)
-        s = _gqa_scores(qg, kc_.to(q_.dtype)) * dh ** -0.5   # (B,Hkv,G,1,S_l)
-        s = torch.where(valid[None, None, None, None, :], s, NEG_INF)
-        m = s.amax(-1, keepdim=True)
-        for md in seq:
-            m = funcol.all_reduce(m, "max", (mctx.mesh, md))
-        e = torch.exp(s - m)
-        l_ = e.sum(-1, keepdim=True)
-        o = _gqa_ctx(e, vc_.to(q_.dtype))                    # (B,1,Hkv,G,dh)
-        for md in seq:
-            l_ = funcol.all_reduce(l_, "sum", (mctx.mesh, md))
-            o = funcol.all_reduce(o, "sum", (mctx.mesh, md))
-        # l_: (B,Hkv,G,1,1) -> (B,1,Hkv,G,1)
-        ctx = (o / l_.permute(0, 3, 1, 2, 4)).reshape(B, 1, Hq, dh)
-        return out_proj(ctx.to(q_.dtype), wo_)
+        ctx = _gqa_chunk(mctx, q_, kc_, vc_, valid, seq, n_chunks)
+        return _heads_out(mctx, ctx, wo_, q_sh)
     a = body(mctx, f, [(q, q.placements), (k_new, k_new.placements),
                        (v_new, v_new.placements), (kc, kc.placements),
                        (vc, vc.placements), (wo, wop)], [out_pl])
+    return a, cache
+
+
+def attn_decode_cross(p: dict, h: DTensor, cross: dict, cfg: ModelConfig,
+                      mctx) -> DTensor:
+    """One decode step's cross-attention against the encoder's K/V, which
+    prefill cached (read only): on local heads where the cache's kv heads
+    are split or whole, flash-decoding over all heads where its sequence
+    is split."""
+    q = _proj(mctx, h, p["w_q"], ("embed", "heads", None),
+              p.get("b_q"), ("heads", None))
+    kc, vc = cross["k"], cross["v"]
+    wo = p["w_o"]
+    wop = wpl(mctx, ("heads", None, "embed"), _shape(wo))
+    q_sh = _on_model(q.placements, mctx.mesh)
+    seq, n_chunks, _, S_l = _chunks(mctx, kc)
+    Hq, Hkv = q.shape[2], kc.shape[2]
+    tp_n, r = mctx.model_size, coord(mctx, MODEL_AXIS)
+    Hq_l = Hq // tp_n if q_sh else Hq
+    out_pl = act(mctx, ("act_batch", None, None), _shape(h))
+    if q_sh:
+        out_pl = _model_partial(mctx, out_pl)
+    _same_batch(q.placements, kc.placements)
+    local = not seq                 # the whole sequence: local heads
+    if local:
+        Hkv_l = Hkv // tp_n if _on_model(kc.placements, mctx.mesh) else Hkv
+        k_lo, k_hi = _kv_span(Hq, Hkv, Hq_l, r * Hq_l if q_sh else 0, Hkv_l,
+                              r * Hkv_l if Hkv_l != Hkv else 0)
+
+    def f(q_, kc_, vc_, wo_):
+        valid = torch.ones(S_l, dtype=torch.bool, device=q_.device)
+        if local:
+            ctx = decode_attention(q_, kc_[:, :, k_lo:k_hi].to(q_.dtype),
+                                   vc_[:, :, k_lo:k_hi].to(q_.dtype), valid)
+            return _heads_out(mctx, ctx, wo_, False)
+        if q_sh:
+            q_ = _all_gather(q_.contiguous(), 2, _group(mctx, MODEL_AXIS))
+        ctx = _gqa_chunk(mctx, q_, kc_, vc_, valid, seq, n_chunks)
+        return _heads_out(mctx, ctx, wo_, q_sh)
+    return body(mctx, f, [(q, q.placements), (kc, kc.placements),
+                          (vc, vc.placements), (wo, wop)], [out_pl])
+
+
+def mla_decode(p: dict, h: DTensor, pos: int, cache: dict, cfg: ModelConfig,
+               mctx):
+    """Absorbed-form MLA decode against a sequence-sharded latent cache:
+    q and its absorbed nope part for the local heads, then gathered to
+    every head; the new latents written into the rank that holds slot
+    ``pos``; the latent context of every head over this rank's chunk,
+    combined over the axes that split the sequence; the local heads'
+    ``w_uv`` and row-parallel ``w_o``. One chunk runs the plain path's
+    ``mla_decode`` on the local heads."""
+    ckv, kr = cache["ckv"], cache["k_rope"]
+    h = place(h, act(mctx, ("act_batch", None, None), _shape(h)))
+    ins, heads = _mla_weights(p, cfg, mctx)
+    seq, n_chunks, s0, S_l = _chunks(mctx, ckv)
+    out_pl = act(mctx, ("act_batch", None, None), _shape(h))
+    if heads:
+        out_pl = _model_partial(mctx, out_pl)
+    _same_batch(h.placements, ckv.placements)
+    m = cfg.mla
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+
+    def f(x, ckv_, kr_, *ws):
+        lp = dict(zip(_MLA_KEYS, ws))
+        if n_chunks == 1:
+            out, _ = attention.mla_decode(lp, x, pos, {"ckv": ckv_,
+                                                       "k_rope": kr_}, cfg)
+            return out
+        B = x.shape[0]
+        positions = torch.full((B, 1), pos, device=x.device)
+        q_nope, q_rope = attention._mla_q(lp, x, positions, cfg)
+        ckv_new, kr_new = attention._mla_latents(lp, x, positions, cfg)
+        if s0 <= pos < s0 + S_l:
+            ckv_[:, pos - s0] = ckv_new[:, 0].to(ckv_.dtype)
+            kr_[:, pos - s0] = kr_new[:, 0].to(kr_.dtype)
+        q_abs = torch.einsum("bshk,rhk->bshr", q_nope, lp["w_uk"].to(x.dtype))
+        if heads:
+            grp = _group(mctx, MODEL_AXIS)
+            q_abs = _all_gather(q_abs.contiguous(), 2, grp)
+            q_rope = _all_gather(q_rope.contiguous(), 2, grp)
+        s = (torch.einsum("bshr,bkr->bhsk", q_abs.float(), ckv_.float())
+             + torch.einsum("bshr,bkr->bhsk", q_rope.float(), kr_.float()))
+        s = s * scale
+        valid = s0 + torch.arange(S_l, device=x.device) <= pos
+        s = torch.where(valid[None, None, None, :], s, NEG_INF)
+        o, l_ = _combine(mctx, s, seq, lambda e: torch.einsum(
+            "bhsk,bkr->bshr", e, ckv_.float()))
+        ctx = o / l_.permute(0, 2, 1, 3)              # (B,1,H,r)
+        if heads:
+            H_l = ctx.shape[2] // mctx.model_size
+            r = coord(mctx, MODEL_AXIS)
+            ctx = ctx[:, :, r * H_l:(r + 1) * H_l]
+        out_h = torch.einsum("bshr,rhv->bshv", ctx.to(x.dtype),
+                             lp["w_uv"].to(x.dtype))
+        return _heads_out(mctx, out_h, lp["w_o"], False)
+    a = body(mctx, f, [(h, h.placements), (ckv, ckv.placements),
+                       (kr, kr.placements)] + ins, [out_pl])
     return a, cache
 
 
@@ -646,8 +908,11 @@ def attn_block_dec(p, x: DTensor, pos: int, cache: dict, cfg: ModelConfig,
     dec = ("act_batch", None, "act_embed")
     cache = mctx.constrain_kv(cache)
     h = rms_norm(mctx, x, p["ln1"], cfg.norm_eps)
-    a, cache = attn_decode(p["attn"], h, pos, cache, cfg, mctx,
-                           window=window)
+    if cfg.attn_type == "mla":
+        a, cache = mla_decode(p["attn"], h, pos, cache, cfg, mctx)
+    else:
+        a, cache = attn_decode(p["attn"], h, pos, cache, cfg, mctx,
+                               window=window)
     cache = mctx.constrain_kv(cache)
     x = add(mctx.constrain(x, dec), mctx.constrain(a, dec))
     h2 = rms_norm(mctx, x, p["ln2"], cfg.norm_eps)
@@ -655,6 +920,27 @@ def attn_block_dec(p, x: DTensor, pos: int, cache: dict, cfg: ModelConfig,
         f, _ = moe_ffn(p["moe"], h2, cfg, mctx)
     else:
         f = mlp(mctx, p["mlp"], h2)
+    return add(x, mctx.constrain(f, dec))
+
+
+def cross_block_dec(p, x: DTensor, pos: int, cache: dict, cfg: ModelConfig,
+                    mctx) -> DTensor:
+    """One token through whisper's decoder block: self-attention against
+    the self cache (no rope), cross-attention to the cached encoder K/V,
+    the ungated MLP."""
+    dec = ("act_batch", None, "act_embed")
+    h = rms_norm(mctx, x, p["ln1"], cfg.norm_eps)
+    # the self cache stays as its spec places it (``act_seq``): its local
+    # tensors are what the step writes
+    a, _ = attn_decode(p["attn"], h, pos, cache["self"], cfg, mctx,
+                       use_rope=False)
+    x = add(mctx.constrain(x, dec), mctx.constrain(a, dec))
+    hx = rms_norm(mctx, x, p["ln_x"], cfg.norm_eps)
+    x = add(x, mctx.constrain(attn_decode_cross(p["xattn"], hx,
+                                                cache["cross"], cfg, mctx),
+                              dec))
+    f = mlp(mctx, p["mlp"], rms_norm(mctx, x, p["ln2"], cfg.norm_eps),
+            gated=False)
     return add(x, mctx.constrain(f, dec))
 
 
@@ -690,8 +976,7 @@ def moe_ffn(p: dict, x: DTensor, cfg: ModelConfig, mctx):
         def f(x_, rw, wg, wu, wd):
             y, aux, dropped = moe_lib._moe_ep_body(
                 x_, rw, wg, wu, wd, cfg=cfg, G=G, tp=tp_n, j=j,
-                all_to_all=lambda t: funcol.all_to_all_single_autograd(
-                    t, None, None, grp),
+                all_to_all=functools.partial(_all_to_all, group=grp),
                 gather_tp=lambda t: gather_over(mctx, t, MODEL_AXIS, 0))
             _count_dropped(mctx, dropped)
             return y, aux
@@ -722,6 +1007,14 @@ def moe_ffn(p: dict, x: DTensor, cfg: ModelConfig, mctx):
     return y, aux
 
 
+def _all_to_all(t, group):
+    """Equal-split all-to-all; the autograd op only where a gradient is
+    being recorded (it has no kernel under inference mode)."""
+    if torch.is_grad_enabled():
+        return funcol.all_to_all_single_autograd(t, None, None, group)
+    return funcol.all_to_all_single(t, None, None, group)
+
+
 def _count_dropped(mctx, dropped) -> None:
     stats = mctx.stats
     if stats is not None:
@@ -729,11 +1022,14 @@ def _count_dropped(mctx, dropped) -> None:
 
 
 def _flat_group(mctx, axes: list[str]):
-    """The process group over several mesh axes (data-major)."""
+    """The process group over several mesh axes (data-major). Made outside
+    any dispatch mode: flattening a mesh computes on real tensors, which a
+    trace under fake tensors (the dry-run) would otherwise take over."""
     mesh = mctx.mesh
     if len(axes) == 1:
         return (mesh, _names(mesh).index(axes[0]))
-    if list(axes) == _names(mesh):
-        return mesh._flatten("_".join(axes)).get_group()
-    return mesh[tuple(axes)]._flatten("_".join(axes)).get_group()
+    with _disable_current_modes():
+        if list(axes) == _names(mesh):
+            return mesh._flatten("_".join(axes)).get_group()
+        return mesh[tuple(axes)]._flatten("_".join(axes)).get_group()
 

@@ -10,9 +10,10 @@ scans over a stack, the port loops over ``layer_views`` of it.
 Training (``loss_fn``) runs the same forward with ``collect=False`` (no
 stacked caches) and, under ``ParallelConfig.remat == "full"``, each block
 inside ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``).
-With a mesh (``MCtx.mesh``) the attention archs run the blocks of
-``models/tp.py`` on DTensors, with the reference's constraints at block
-boundaries; the others raise (``tp.check_mesh``).
+With a mesh (``MCtx.mesh``) every arch runs the blocks of ``models/tp.py``
+(attention, MLA, MoE, cross-attention) and ``models/tp_recurrent.py``
+(Mamba2, mLSTM, sLSTM) on DTensors, with the reference's constraints at
+block boundaries.
 qwen2-vl takes precomputed ``embeds`` in place of tokens and M-RoPE
 ``positions`` (3, B, S); whisper is an encoder-decoder
 (``encdec_forward``): a bidirectional encoder over frame embeddings and a
@@ -30,7 +31,7 @@ from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.models import kvcache, tp
+from repro_torch.models import kvcache, tp, tp_recurrent
 from repro_torch.models.attention import (attention_specs, attn_forward,
                                           mla_forward, mla_specs)
 from repro_torch.models.context import MCtx
@@ -220,7 +221,7 @@ def _attn_block_fwd(p, x, positions, cfg: ModelConfig, mctx: MCtx, *,
     if mctx.mesh is not None:
         return tp.attn_block_fwd(p, x, positions, cfg, mctx, window=window,
                                  moe=moe, causal=causal, use_rope=use_rope,
-                                 q_chunk=q_chunk)
+                                 gated=gated, q_chunk=q_chunk)
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.attn_type == "mla":
         a, kv = mla_forward(p["attn"], h, positions, cfg, q_chunk=q_chunk)
@@ -237,11 +238,17 @@ def _attn_block_fwd(p, x, positions, cfg: ModelConfig, mctx: MCtx, *,
     return x + f, kv, aux
 
 
-def _shared_attn_fwd(sa, x, positions, cfg: ModelConfig, *,
+def _shared_attn_fwd(sa, x, positions, cfg: ModelConfig, mctx: MCtx, *,
                      q_chunk: int = 512):
     """zamba2's shared attention block (one weight copy for every group).
     The reference calls it without its mesh context, so it takes chunked
-    attention and never the flash kernel; so does the port."""
+    attention and never the flash kernel; so does the port, on a mesh
+    too."""
+    if mctx.mesh is not None:
+        x, kv, _ = tp.attn_block_fwd(sa, x, positions, cfg, mctx, window=0,
+                                     moe=False, kernel=False,
+                                     q_chunk=q_chunk)
+        return x, kv
     h = rmsnorm(x, sa["ln1"], cfg.norm_eps)
     a, kv = attn_forward(sa["attn"], h, positions, cfg, causal=True,
                          q_chunk=q_chunk)
@@ -250,22 +257,20 @@ def _shared_attn_fwd(sa, x, positions, cfg: ModelConfig, *,
     return x, kv
 
 
-def _mamba_block_fwd(p, x, cfg: ModelConfig):
-    out, cache = ssm_forward(p["ssm"], rmsnorm(x, p["ln"], cfg.norm_eps),
-                             cfg)
-    return x + out, cache
+def _recurrent_fwd(kind: str, forward, key: str):
+    """A residual block around a recurrent cell's forward (``kind`` names
+    it for the mesh path)."""
+    def block(p, x, cfg: ModelConfig, mctx: MCtx):
+        if mctx.mesh is not None:
+            return tp_recurrent.block_fwd(kind, p, x, cfg, mctx)
+        out, cache = forward(p[key], rmsnorm(x, p["ln"], cfg.norm_eps), cfg)
+        return x + out, cache
+    return block
 
 
-def _mlstm_block_fwd(p, x, cfg: ModelConfig):
-    out, cache = mlstm_forward(p["cell"], rmsnorm(x, p["ln"], cfg.norm_eps),
-                               cfg)
-    return x + out, cache
-
-
-def _slstm_block_fwd(p, x, cfg: ModelConfig):
-    out, cache = slstm_forward(p["cell"], rmsnorm(x, p["ln"], cfg.norm_eps),
-                               cfg)
-    return x + out, cache
+_mamba_block_fwd = _recurrent_fwd("mamba", ssm_forward, "ssm")
+_mlstm_block_fwd = _recurrent_fwd("mlstm", mlstm_forward, "cell")
+_slstm_block_fwd = _recurrent_fwd("slstm", slstm_forward, "cell")
 
 
 def _to_ring(kv: dict, window: int, S: int) -> dict:
@@ -330,12 +335,13 @@ def seg_forward(p, x, positions, cfg: ModelConfig, mctx: MCtx, seg: Seg, *,
 
     def no_aux(block):               # a block with no MoE loss
         def fn(lp, x):
-            return (*block(lp, x, cfg), None)
+            return (*block(lp, x, cfg, mctx), None)
         return fn
 
     def shared_blk(sa, x):
-        return (*_shared_attn_fwd(sa, x, positions, cfg, q_chunk=q_chunk),
-                None)
+        x, kv = _shared_attn_fwd(sa, x, positions, cfg, mctx,
+                                 q_chunk=q_chunk)
+        return x, mctx.constrain_kv(kv) if collect else None, None
 
     if seg.n == 0:                  # a plan may leave a segment empty
         caches = (_empty_caches(cfg, seg, x.shape[0], S, x.device)
@@ -437,8 +443,6 @@ def forward_hidden(params, cfg: ModelConfig, mctx: MCtx, batch: dict, *,
     row. There is no padding mask, as in the reference.
     """
     plan = segment_plan(cfg)
-    if mctx.mesh is not None:
-        tp.check_mesh(cfg)
     x = _input_hidden(params, cfg, batch, torch_dtype(cfg.dtype), mctx)
     B, S = x.shape[:2]
     positions = _positions(cfg, batch, B, S, x.device)
@@ -460,18 +464,32 @@ def forward_hidden(params, cfg: ModelConfig, mctx: MCtx, batch: dict, *,
     return x, caches, aux
 
 
+def _with_positions(x, pe: torch.Tensor, mctx: MCtx):
+    """``x`` (B, S, d) plus fixed positions ``pe`` (S, d); on a mesh ``x``
+    is placed with its sequence and width whole first (a partial sum
+    reduced)."""
+    if mctx.mesh is None:
+        return x + pe
+    x = mctx.constrain(x, ("act_batch", None, None))
+    return tp.map_local(lambda t: t + pe, x)
+
+
 def encode(params, cfg: ModelConfig, mctx: MCtx, frames: torch.Tensor, *,
            remat: bool = False, q_chunk: int = 512) -> torch.Tensor:
     """Whisper's encoder: ``frames`` (B, S_enc, d) plus sinusoidal
     positions through the bidirectional, ungated blocks without rope (the
     flash kernel's path under ``attention_kernel="kernel"``), then
-    ``enc_norm``."""
+    ``enc_norm``. On a mesh the output is whole in the sequence and width
+    (the layout cross-attention's K/V projections read)."""
     dtype = torch_dtype(cfg.dtype)
     frames = frames.to(dtype)
     B, S_enc = frames.shape[:2]
     dev = frames.device
-    x = frames + sinusoidal_pos_emb(torch.arange(S_enc, device=dev),
-                                    cfg.d_model).to(dtype)
+    pe = sinusoidal_pos_emb(torch.arange(S_enc, device=dev),
+                            cfg.d_model).to(dtype)
+    if mctx.mesh is not None:
+        frames = tp.inputs(mctx, frames, ("act_batch", None, None))
+    x = _with_positions(frames, pe, mctx)
     pos = _arange_positions(B, S_enc, dev)
 
     def block(lp, x):
@@ -480,7 +498,11 @@ def encode(params, cfg: ModelConfig, mctx: MCtx, frames: torch.Tensor, *,
                                q_chunk=q_chunk)
     for lp in layer_views(params["encoder"], cfg.num_encoder_layers):
         x, _, _ = _apply(block, x, lp, collect=False, remat=remat)
-    return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+    if mctx.mesh is None:
+        return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+    return mctx.constrain(tp.rms_norm(mctx, x, params["enc_norm"],
+                                      cfg.norm_eps),
+                          ("act_batch", None, None))
 
 
 def encdec_forward(params, cfg: ModelConfig, mctx: MCtx, batch: dict, *,
@@ -497,14 +519,22 @@ def encdec_forward(params, cfg: ModelConfig, mctx: MCtx, batch: dict, *,
     tokens = batch["tokens"]
     B, S_dec = tokens.shape
     dev = enc_out.device
-    x = embed_tokens(params["embed"], tokens, dtype)
-    x = x + sinusoidal_pos_emb(torch.arange(S_dec, device=dev),
-                               cfg.d_model).to(dtype)
+    mesh = mctx.mesh is not None
+    if mesh:
+        x = tp.embed(mctx, params["embed"]["tok"], tokens, dtype)
+    else:
+        x = embed_tokens(params["embed"], tokens, dtype)
+    x = _with_positions(x, sinusoidal_pos_emb(
+        torch.arange(S_dec, device=dev), cfg.d_model).to(dtype), mctx)
     dec_pos = _arange_positions(B, S_dec, dev)
     enc_pos = _arange_positions(B, enc_out.shape[1], dev)
     zero = _zero_aux(x)
 
     def block(lp, x):
+        if mesh:
+            x, kv = tp.cross_block_fwd(lp, x, enc_out, dec_pos, cfg, mctx,
+                                       q_chunk=q_chunk)
+            return x, kv, zero
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
         a, kv = attn_forward(lp["attn"], h, dec_pos, cfg, causal=True,
                              use_rope=False, q_chunk=q_chunk)
@@ -521,7 +551,10 @@ def encdec_forward(params, cfg: ModelConfig, mctx: MCtx, batch: dict, *,
     for lp in layer_views(params["decoder"], cfg.num_layers):
         x, c, _ = _apply(block, x, lp, collect=collect, remat=remat)
         caches.append(c)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    if mesh:
+        x = tp.rms_norm(mctx, x, params["final_norm"], cfg.norm_eps)
+    else:
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return x, (_stack(caches) if collect else None), zero
 
 

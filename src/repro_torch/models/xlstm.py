@@ -7,10 +7,16 @@ recurrent carry (C: (B,H,P,P), n: (B,H,P), m: (B,H)). The stabilizers are
 the reference's, term for term. sLSTM is a genuine nonlinear recurrence
 (block-diagonal recurrent weights R per head) and runs as a Python loop
 over the tokens; its input projections, which do not depend on the
-recurrence, are computed for the whole sequence before the loop.
+recurrence, are computed for the whole sequence before the loop. Both
+loops are one autograd node each (``scan``), which the roofline walker
+counts by trip count.
 
 Blocks carry their own projections: xLSTM models have no separate FFN
-(d_ff = 0).
+(d_ff = 0). The cells take their head count from their weights, and three
+hooks for the mesh path (``models/tp_recurrent.py``): ``gather`` joins a
+projection's columns across ranks, ``own`` is the slice of the inner width
+whose output rows this rank holds, ``norm`` replaces the rmsnorm over the
+inner width.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from repro_torch.models.kvcache import CONV_K
 from repro_torch.models.layers import rmsnorm, rmsnorm_spec
 from repro_torch.models.params import ParamSpec
 from repro_torch.models.ssm import _causal_conv
+from repro_torch.roofline import hlo_walk
 
 NEG = -1e30
 
@@ -61,6 +68,81 @@ def _mlstm_gates(p: dict, xc: torch.Tensor):
     return i_raw, logf
 
 
+def _cols(t: torch.Tensor, gather) -> torch.Tensor:
+    return t if gather is None else gather(t)
+
+
+def _out(p: dict, h: torch.Tensor, w: str, cfg: ModelConfig, own, norm):
+    """The normed cell output through its row-parallel projection ``w``."""
+    h = rmsnorm(h, p["norm"], cfg.norm_eps) if norm is None else norm(h)
+    if own is not None:
+        h = h[..., own[0]:own[1]]
+    return h @ p[w].to(h.dtype)
+
+
+class _Scan(torch.autograd.Function):
+    """A recurrence ``step(carry, x_t, params) -> (carry, y_t)`` over dim
+    1 of ``xs`` as one autograd node: the forward keeps each step's
+    carry; the backward runs through the steps in reverse, re-running each
+    under autograd from its kept carry (the products autograd takes
+    through the loop). Under the roofline walker (a fake-tensor trace) one
+    step runs inside ``hlo_walk.trips(n)`` each way: the n steps, which
+    issue the same ops on the same shapes, are counted, not issued."""
+
+    @staticmethod
+    def forward(ctx, step, nc: int, nx: int, *ts):
+        carry, xs, ps = tuple(ts[:nc]), ts[nc:nc + nx], ts[nc + nx:]
+        n = xs[0].shape[1]
+        run = 1 if hlo_walk.walking() else n
+        kept = [c.new_empty((c.shape[0], n, *c.shape[1:])) for c in carry]
+        ys = None
+        with hlo_walk.trips(n // run):
+            for t in range(run):
+                for k, c in zip(kept, carry):
+                    k[:, t] = c
+                carry, y = step(carry, [x[:, t] for x in xs], ps)
+                if ys is None:
+                    ys = y.new_empty((y.shape[0], n, *y.shape[1:]))
+                ys[:, t] = y
+        ctx.step, ctx.nc, ctx.nx = step, nc, nx
+        ctx.save_for_backward(*xs, *ps, *kept)
+        return (ys, *carry)
+
+    @staticmethod
+    def backward(ctx, g_ys, *g_last):
+        saved, nc, nx = ctx.saved_tensors, ctx.nc, ctx.nx
+        xs, ps, kept = saved[:nx], saved[nx:len(saved) - nc], saved[-nc:]
+        n = xs[0].shape[1]
+        run = 1 if hlo_walk.walking() else n
+        g_carry = [torch.zeros_like(k[:, 0]) if g is None else g
+                   for g, k in zip(g_last, kept)]
+        g_xs = [torch.zeros_like(x) for x in xs]
+        g_ps = [torch.zeros_like(x) for x in ps]
+        with hlo_walk.trips(n // run):
+            for t in reversed(range(n - run, n)):
+                ins = [x.detach().requires_grad_() for x in (
+                    *(k[:, t] for k in kept), *(x[:, t] for x in xs), *ps)]
+                with torch.enable_grad():
+                    carry, y = ctx.step(tuple(ins[:nc]), ins[nc:nc + nx],
+                                        ins[nc + nx:])
+                g_y = torch.zeros_like(y) if g_ys is None else g_ys[:, t]
+                grads = torch.autograd.grad((*carry, y), ins, (*g_carry, g_y))
+                g_carry = list(grads[:nc])
+                for g_x, g in zip(g_xs, grads[nc:nc + nx]):
+                    g_x[:, t] = g
+                for g_p, g in zip(g_ps, grads[nc + nx:]):
+                    g_p += g
+        return (None, None, None, *g_carry, *g_xs, *g_ps)
+
+
+def scan(step, carry: tuple, xs: tuple, params: tuple = ()):
+    """``step`` over dim 1 of ``xs`` from ``carry`` (``_Scan``). Returns
+    (the steps' outputs stacked on dim 1, the last carry)."""
+    ys, *last = _Scan.apply(step, len(carry), len(xs), *carry, *xs,
+                            *params)
+    return ys, tuple(last)
+
+
 def _mlstm_chunk_scan(q, k, v, i_raw, logf, chunk: int,
                       carry0: Optional[tuple] = None):
     """q,k,v: (B,S,H,P) fp32; i_raw/logf: (B,S,H).
@@ -74,16 +156,12 @@ def _mlstm_chunk_scan(q, k, v, i_raw, logf, chunk: int,
         carry0 = (torch.zeros((B, H, P, P), dtype=torch.float32, device=dev),
                   torch.zeros((B, H, P), dtype=torch.float32, device=dev),
                   torch.full((B, H), NEG, dtype=torch.float32, device=dev))
-    C0, n0, m0 = carry0
     idx = torch.arange(Q, device=dev)
     causal = idx[:, None] >= idx[None, :]
     sc = P ** -0.5
 
-    hs = []
-    for c in range(nc):
-        sl = slice(c * Q, (c + 1) * Q)
-        q_c, k_c, v_c = q[:, sl], k[:, sl], v[:, sl]
-        ir, lf = i_raw[:, sl], logf[:, sl]              # (B,Q,H)
+    def chunk_step(carry, xs, _):
+        (C0, n0, m0), (q_c, k_c, v_c, ir, lf) = carry, xs   # lf/ir (B,Q,H)
         b = torch.cumsum(lf, dim=1)                     # inclusive cum logf
         # intra weights: log a[i,j] = b_i - b_j + itilde_j   (j<=i)
         la = b[:, :, None, :] - b[:, None, :, :] + ir[:, None, :, :]
@@ -112,44 +190,46 @@ def _mlstm_chunk_scan(q, k, v, i_raw, logf, chunk: int,
               + torch.einsum("bjhp,bjhd->bhpd", wj[..., None] * k_c, v_c))
         n0 = (n0 * scale0[..., None]
               + torch.einsum("bjh,bjhp->bhp", wj, k_c))
-        m0 = m_new
-        hs.append(h)
-    return torch.cat(hs, dim=1), (C0, n0, m0)
+        return (C0, n0, m_new), h
+    hs, carry = scan(chunk_step, tuple(carry0), tuple(
+        t.unflatten(1, (nc, Q)) for t in (q, k, v, i_raw, logf)))
+    return hs.reshape(B, S, H, P), carry
 
 
 def mlstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                  chunk: int = 128) -> tuple[torch.Tensor, dict]:
+                  chunk: int = 128, gather=None, own=None, norm=None
+                  ) -> tuple[torch.Tensor, dict]:
     B, S, d = x.shape
-    H, P = cfg.num_heads, cfg.resolved_head_dim
+    H, P = p["w_i"].shape[-1], cfg.resolved_head_dim
     dt = x.dtype
     xc = F.silu(_causal_conv(x, p["conv"])).to(dt)   # as in decode
-    q = (xc @ p["w_q"].to(dt)).reshape(B, S, H, P).float()
-    k = (xc @ p["w_k"].to(dt)).reshape(B, S, H, P).float()
-    v = (x @ p["w_v"].to(dt)).reshape(B, S, H, P).float()
+    q = _cols(xc @ p["w_q"].to(dt), gather).reshape(B, S, H, P).float()
+    k = _cols(xc @ p["w_k"].to(dt), gather).reshape(B, S, H, P).float()
+    v = _cols(x @ p["w_v"].to(dt), gather).reshape(B, S, H, P).float()
     i_raw, logf = _mlstm_gates(p, xc)
     h, carry = _mlstm_chunk_scan(q, k, v, i_raw, logf, chunk)
-    g = F.silu(x @ p["w_g"].to(dt))
+    g = F.silu(_cols(x @ p["w_g"].to(dt), gather))
     h = h.reshape(B, S, H * P).to(dt) * g
-    h = rmsnorm(h, p["norm"], cfg.norm_eps)
-    out = h @ p["w_o"].to(dt)
+    out = _out(p, h, "w_o", cfg, own, norm)
     conv_tail = x[:, -(CONV_K - 1):, :].float()
     return out, {"C": carry[0], "n": carry[1], "m": carry[2],
                  "conv": conv_tail}
 
 
 def mlstm_decode(p: dict, x: torch.Tensor, cache: dict,
-                 cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+                 cfg: ModelConfig, gather=None, own=None, norm=None
+                 ) -> tuple[torch.Tensor, dict]:
     """x: (B, 1, d). Exact recurrent step. Returns (out, new cache);
     ``cache`` is left as it is."""
     B = x.shape[0]
-    H, P = cfg.num_heads, cfg.resolved_head_dim
+    H, P = p["w_i"].shape[-1], cfg.resolved_head_dim
     dt = x.dtype
     x0 = x[:, 0]
     win = torch.cat([cache["conv"], x0[:, None].float()], 1)
     xc = F.silu(torch.einsum("bkc,kc->bc", win, p["conv"].float())).to(dt)
-    q = (xc @ p["w_q"].to(dt)).reshape(B, H, P).float()
-    k = (xc @ p["w_k"].to(dt)).reshape(B, H, P).float()
-    v = (x0 @ p["w_v"].to(dt)).reshape(B, H, P).float()
+    q = _cols(xc @ p["w_q"].to(dt), gather).reshape(B, H, P).float()
+    k = _cols(xc @ p["w_k"].to(dt), gather).reshape(B, H, P).float()
+    v = _cols(x0 @ p["w_v"].to(dt), gather).reshape(B, H, P).float()
     i_raw, logf = _mlstm_gates(p, xc)
     C0, n0, m0 = cache["C"], cache["n"], cache["m"]
     m1 = torch.maximum(logf + m0, i_raw)
@@ -162,10 +242,9 @@ def mlstm_decode(p: dict, x: torch.Tensor, cache: dict,
     num = torch.einsum("bhp,bhpd->bhd", q, C1) * sc
     den = torch.einsum("bhp,bhp->bh", q, n1) * sc
     h = num / torch.maximum(den.abs(), torch.exp(-m1))[..., None]
-    g = F.silu(x0 @ p["w_g"].to(dt))
+    g = F.silu(_cols(x0 @ p["w_g"].to(dt), gather))
     h = h.reshape(B, H * P).to(dt) * g
-    h = rmsnorm(h, p["norm"], cfg.norm_eps)
-    out = (h @ p["w_o"].to(dt))[:, None]
+    out = _out(p, h, "w_o", cfg, own, norm)[:, None]
     return out, {"C": C1, "n": n1, "m": m1, "conv": win[:, 1:]}
 
 
@@ -200,24 +279,22 @@ def slstm_specs(cfg: ModelConfig) -> dict:
     }
 
 
-def _slstm_inputs(p: dict, x32: torch.Tensor, H: int, P: int) -> dict:
+def _slstm_inputs(p: dict, x32: torch.Tensor, P: int, gather=None) -> dict:
     """Each gate's input part W x + b, fp32, for x32 (..., d) ->
     (..., H, P)."""
-    return {g: (x32 @ p[f"w_{g}"].float()).unflatten(-1, (H, P))
-            + p[f"b_{g}"].float().reshape(H, P) for g in GATES}
+    return {g: _cols(x32 @ p[f"w_{g}"].float() + p[f"b_{g}"].float(),
+                     gather).unflatten(-1, (-1, P)) for g in GATES}
 
 
-def _slstm_step(p: dict, carry: tuple, wx: dict) -> tuple:
-    """carry: (h, c, n, m), each (B,H,P). wx: each gate's W x_t + b."""
+def _slstm_cell(r: list, carry: tuple, wx: list) -> tuple:
+    """One sLSTM step. carry: (h, c, n, m), each (B,H,P); r: the z, i, f,
+    o gates' recurrent matrices (H,P,P) in fp32; wx: their W x_t + b."""
     h0, c0, n0, m0 = carry
-
-    def gate(g):
-        return wx[g] + torch.einsum("bhp,hpq->bhq", h0, p[f"r_{g}"].float())
-
-    z = torch.tanh(gate("z"))
-    i_raw = gate("i")
-    logf = F.logsigmoid(gate("f"))
-    o = torch.sigmoid(gate("o"))
+    z_, i_raw, f_, o_ = (w + torch.einsum("bhp,hpq->bhq", h0, rg)
+                         for w, rg in zip(wx, r))
+    z = torch.tanh(z_)
+    logf = F.logsigmoid(f_)
+    o = torch.sigmoid(o_)
     m1 = torch.maximum(logf + m0, i_raw)
     fp = torch.exp(logf + m0 - m1)
     ip = torch.exp(i_raw - m1)
@@ -227,39 +304,45 @@ def _slstm_step(p: dict, carry: tuple, wx: dict) -> tuple:
     return (h1, c1, n1, m1)
 
 
+def _slstm_r(p: dict) -> list:
+    return [p[f"r_{g}"].float() for g in GATES]
+
+
+def _slstm_step(carry, wx_t, r):
+    carry = _slstm_cell(r, carry, wx_t)
+    return carry, carry[0]
+
+
 def slstm_init_state(B: int, H: int, P: int, device) -> tuple:
     z = torch.zeros((B, H, P), dtype=torch.float32, device=device)
     return (z, z, z, torch.full((B, H, P), NEG, dtype=torch.float32,
                                 device=device))
 
 
-def slstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig
-                  ) -> tuple[torch.Tensor, dict]:
+def slstm_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, gather=None,
+                  own=None, norm=None) -> tuple[torch.Tensor, dict]:
     B, S, d = x.shape
-    H, P = cfg.num_heads, cfg.resolved_head_dim
+    H, P = p["r_z"].shape[0], cfg.resolved_head_dim
     dt = x.dtype
-    wx = _slstm_inputs(p, x.float(), H, P)              # (B,S,H,P) each
-    carry = slstm_init_state(B, H, P, x.device)
-    hs = []
-    for t in range(S):
-        carry = _slstm_step(p, carry, {g: wx[g][:, t] for g in GATES})
-        hs.append(carry[0])
-    h = torch.stack(hs, dim=1).reshape(B, S, H * P).to(dt)
-    h = rmsnorm(h, p["norm"], cfg.norm_eps)
-    out = h @ p["w_out"].to(dt)
+    wx = _slstm_inputs(p, x.float(), P, gather)         # (B,S,H,P) each
+    hs, carry = scan(_slstm_step, slstm_init_state(B, H, P, x.device),
+                     tuple(wx[g] for g in GATES), tuple(_slstm_r(p)))
+    h = hs.reshape(B, S, H * P).to(dt)
+    out = _out(p, h, "w_out", cfg, own, norm)
     return out, {"h": carry[0], "c": carry[1], "n": carry[2], "m": carry[3]}
 
 
 def slstm_decode(p: dict, x: torch.Tensor, cache: dict,
-                 cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+                 cfg: ModelConfig, gather=None, own=None, norm=None
+                 ) -> tuple[torch.Tensor, dict]:
     """x: (B, 1, d). Returns (out, new cache); ``cache`` is left as it
     is."""
     B = x.shape[0]
-    H, P = cfg.num_heads, cfg.resolved_head_dim
+    H, P = p["r_z"].shape[0], cfg.resolved_head_dim
     dt = x.dtype
     carry = (cache["h"], cache["c"], cache["n"], cache["m"])
-    carry = _slstm_step(p, carry, _slstm_inputs(p, x[:, 0].float(), H, P))
+    wx = _slstm_inputs(p, x[:, 0].float(), P, gather)
+    carry = _slstm_cell(_slstm_r(p), carry, [wx[g] for g in GATES])
     h = carry[0].reshape(B, H * P).to(dt)
-    h = rmsnorm(h, p["norm"], cfg.norm_eps)
-    out = (h @ p["w_out"].to(dt))[:, None]
+    out = _out(p, h, "w_out", cfg, own, norm)[:, None]
     return out, {"h": carry[0], "c": carry[1], "n": carry[2], "m": carry[3]}

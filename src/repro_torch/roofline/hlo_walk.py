@@ -5,7 +5,10 @@ bodies by their trip counts (``repro/roofline/hlo_walk.py``). The port has
 no compiled program: ``analyze(fn, *args)`` runs ``fn`` under
 ``FakeTensorMode`` (no memory behind any tensor, no kernel runs) with a
 dispatch mode that sees every op as it is issued. A Python loop over
-layers issues each layer's ops, so the count needs no trip counts.
+layers issues each layer's ops, so the count needs no trip counts; a loop
+over thousands of identical steps (the sLSTM's recurrence over the
+sequence) runs one step inside ``trips(n)`` under a walk, which counts its
+ops n times, as the reference's walker counts a scan's body.
 
 Counts are per chip, as the reference's: on the mesh path every block body
 runs on one rank's local shards, and DTensor's collectives are issued on
@@ -30,6 +33,7 @@ Accounting (an eager program runs one kernel per op, unfused):
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import weakref
 from typing import Callable
@@ -69,6 +73,31 @@ _REDUCTIONS = frozenset((
     "logsumexp", "_softmax", "_log_softmax", "softmax", "log_softmax",
     "var_mean", "norm", "linalg_vector_norm", "cumsum", "sort", "topk",
     "any", "all"))
+
+
+_WALKS: list = []       # the walk analyze() is running, if any
+
+
+def walking() -> bool:
+    """Is a walk counting the ops issued now (a fake-tensor trace)?"""
+    return bool(_WALKS)
+
+
+@contextlib.contextmanager
+def trips(n: int):
+    """Count every op issued inside ``n`` times: the body of a loop whose
+    ``n`` iterations issue the same ops on tensors of the same shapes, run
+    once under a walk. Outside a walk it changes nothing."""
+    if not _WALKS:
+        yield
+        return
+    walk = _WALKS[-1]
+    old = walk.mult
+    walk.mult = old * n
+    try:
+        yield
+    finally:
+        walk.mult = old
 
 
 def _tensors(tree) -> list:
@@ -122,6 +151,7 @@ class HloCost(TorchDispatchMode):
         self.ops: list = [] if record else None
         self.live = 0
         self.peak = 0
+        self.mult = 1           # trips() of the loop body being issued
         self._seen: dict[int, weakref.ref] = {}
 
     def totals(self) -> Totals:
@@ -153,7 +183,7 @@ class HloCost(TorchDispatchMode):
         if ns == "_c10d_functional":
             kind = _COLLECTIVES.get(name)
             if kind is not None:
-                nb = sum(_nbytes(t) for t in outs)
+                nb = sum(_nbytes(t) for t in outs) * self.mult
                 self.t.coll[kind] += nb
                 self.t.bytes += nb
                 if self.ops is not None:
@@ -170,11 +200,12 @@ class HloCost(TorchDispatchMode):
                 self.warnings.append(f"{name} on DTensors: FLOPs of the "
                                      f"global op, not one rank's")
             fl = self._dot_flops(func, args, kwargs, out)
-            self.dot_flops += fl
+            self.dot_flops += fl * self.mult
         elif torch.Tag.pointwise in func.tags:
             fl = self._operand_elems(outs)
         elif name.rstrip("_") in _REDUCTIONS or name in _REDUCTIONS:
             fl = float(max((_local(t).numel() for t in ins), default=0))
+        fl, nb = fl * self.mult, nb * self.mult
         self.t.flops += fl
         self.t.bytes += nb
         if self.ops is not None:
@@ -210,8 +241,12 @@ def analyze(fn: Callable, *args, record: bool = False, **kwargs) -> dict:
     with fake_mode():
         for t in _tensors((args, kwargs)):
             walk.track(t)
-        with walk:
-            fn(*args, **kwargs)
+        _WALKS.append(walk)
+        try:
+            with walk:
+                fn(*args, **kwargs)
+        finally:
+            _WALKS.pop()
     t = walk.totals()
     out = {"flops": t.flops, "dot_flops": walk.dot_flops, "bytes": t.bytes,
            "collective_bytes": t.collective_bytes,

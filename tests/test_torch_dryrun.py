@@ -77,6 +77,54 @@ def test_layer_loop_counted_whole():
     assert abs(got["flops"] - want["flops"]) / want["flops"] < 0.2
 
 
+@pytest.mark.parametrize("cell", ["slstm", "mlstm"])
+def test_trip_counted_recurrence_equals_the_whole_loop(monkeypatch, cell):
+    """An xLSTM cell's loop (the sLSTM's steps, the mLSTM's chunks) under
+    a walk runs one iteration inside ``trips(n)`` each way; its counts
+    equal those of all n iterations issued one by one, forward and
+    backward, and the reference's walker counts the cell's scan within its
+    usual 20%."""
+    from repro.models import xlstm as jax_xlstm
+    from repro_torch.models import xlstm
+    from repro_torch.roofline import hlo_walk
+    cfg = get_config("xlstm-350m").reduced(dtype="float32")
+    jcfg = jax_get_config("xlstm-350m").reduced(dtype="float32")
+    specs = getattr(xlstm, f"{cell}_specs")(cfg)
+    forward = getattr(xlstm, f"{cell}_forward")
+
+    def fwd(p, x):
+        if cell == "mlstm":
+            return forward(p, x, cfg, chunk=8)[0].sum()
+        return forward(p, x, cfg)[0].sum()
+
+    def train(p, x):
+        leaves = {k: v.requires_grad_() for k, v in p.items()}
+        fwd(leaves, x.requires_grad_()).backward()
+
+    def walks():                  # fresh leaves: no .grad from a last walk
+        return {f.__name__: analyze(
+            f, {k: _leaf(*s.shape) for k, s in specs.items()},
+            _leaf(2, 24, cfg.d_model)) for f in (fwd, train)}
+    trips = walks()
+    monkeypatch.setattr(hlo_walk, "walking", lambda: False)
+    whole = walks()
+    for k in trips:
+        for key in ("flops", "dot_flops", "bytes"):
+            assert trips[k][key] == whole[k][key], (k, key)
+    jspecs = getattr(jax_xlstm, f"{cell}_specs")(jcfg)
+    shapes = [s.shape for s in jspecs.values()]
+
+    def jfwd(x, *ws):
+        p = dict(zip(jspecs, ws))
+        jforward = getattr(jax_xlstm, f"{cell}_forward")
+        if cell == "mlstm":
+            return jforward(p, x, jcfg, chunk=8)[0].sum()
+        return jforward(p, x, jcfg)[0].sum()
+    want = _jax_walk(jfwd, (2, 24, jcfg.d_model), *shapes)
+    assert abs(trips["fwd"]["dot_flops"] - want["flops"]) <= \
+        0.2 * want["flops"]
+
+
 def test_nested_loops():
     def jg(w):
         def inner(c, wi):
@@ -312,7 +360,9 @@ def _compare(got, want, what):
     assert getattr(got, "memory_kind", "device") == kind, what
 
 
-@pytest.mark.parametrize("arch", ["yi-9b", "mixtral-8x22b", "qwen2-vl-72b"])
+@pytest.mark.parametrize("arch", ["yi-9b", "mixtral-8x22b", "qwen2-vl-72b",
+                                  "deepseek-v3-671b", "zamba2-7b",
+                                  "xlstm-350m", "whisper-small"])
 def test_abstract_trees_match_reference(fake_world, arch):
     from repro.core.placement import plan_training_placement as jax_plan
     from repro.launch.inputs import input_specs as jax_input_specs
@@ -335,6 +385,16 @@ def test_abstract_trees_match_reference(fake_world, arch):
              jm.abstract_params(dtype=jnp.bfloat16), "params")
     _compare(m.abstract_cache(128, 32768), jm.abstract_cache(128, 32768),
              "cache")
+    if m.cfg.sub_quadratic:         # long_500k: the sequence-sharded cache
+        jl = JaxModel.create(jm.cfg, _jax_mesh(), JaxParallelConfig(),
+                             seq_sharded_cache=True)
+        ml = Model.create(m.cfg, ParallelConfig(), seq_sharded_cache=True,
+                          mesh=make_production_mesh(device_type="cpu"))
+        _compare(input_specs(ml.cfg, get_shape("long_500k"), ml.mctx),
+                 jax_input_specs(jl.cfg, jax_get_shape("long_500k"),
+                                 jl.mctx), "long_500k")
+        _compare(ml.abstract_cache(1, 524288), jl.abstract_cache(1, 524288),
+                 "long_500k cache")
     for policy in ("auto", "always"):
         got = abstract_train_state(m, plan_training_placement(
             m.cfg, 256, policy=policy))
@@ -398,27 +458,38 @@ import dataclasses, json, sys
 from repro_torch.launch import dryrun
 dryrun.fake_world(4)
 from repro_torch.config.base import get_config
+cells = [(arch, experts, shape, kernel) for arch, experts in (
+             ("yi-9b", None), ("mixtral-8x22b", 2), ("deepseek-v3-671b", None),
+             ("zamba2-7b", None), ("xlstm-350m", None), ("whisper-small", None))
+         for shape in sys.argv[1].split(",") for kernel in ("eager",)]
+cells = [c for c in cells if c[0] in sys.argv[2].split(",")]
+cells += [(a, None, "long_500k", "eager") for a in sys.argv[3].split(",") if a]
+if "whisper-small" in sys.argv[2]:
+    cells.append(("whisper-small", None, "prefill_32k", "kernel"))
 out = {}
-for arch, experts in (("yi-9b", None), ("mixtral-8x22b", 2)):
+for arch, experts, shape, kernel in cells:
     cfg = get_config(arch).reduced()
     if experts:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, num_experts=experts))
-    for shape in ("train_4k", "prefill_32k", "decode_32k"):
-        rec = dryrun.lower_cell(arch, shape, False, cfg=cfg,
-                                mesh_shape=(2, 2), batch=4, seq=32,
-                                device_type="cpu")
-        out[f"{arch}/{shape}"] = {k: rec.get(k) for k in (
-            "status", "error", "mesh", "chips", "roofline", "hlo_walk",
-            "memory_analysis", "moe_bodies", "placement")}
+    B, S = (1, 64) if shape == "long_500k" else (4, 32)
+    rec = dryrun.lower_cell(arch, shape, False, cfg=cfg, mesh_shape=(2, 2),
+                            batch=B, seq=S, device_type="cpu",
+                            attention_kernel=kernel)
+    out[f"{arch}/{shape}/{kernel}"] = {k: rec.get(k) for k in (
+        "status", "error", "mesh", "chips", "roofline", "hlo_walk",
+        "memory_analysis", "moe_bodies", "placement")}
 print(json.dumps(out))
 """
 
+SHAPES3 = "train_4k,prefill_32k,decode_32k"
 
-def test_lower_cell_reduced_every_shape_kind():
+
+def _lower(archs: str, long: str = "") -> dict:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    res = subprocess.run([sys.executable, "-c", _LOWER], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=600)
+    res = subprocess.run([sys.executable, "-c", _LOWER, SHAPES3, archs, long],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     out = json.loads(res.stdout.strip().splitlines()[-1])
     for cell, rec in out.items():
@@ -433,5 +504,84 @@ def test_lower_cell_reduced_every_shape_kind():
         assert rec["hlo_walk"]["collective_bytes"] > 0
         assert rec["memory_analysis"]["peak_size_in_bytes"] >= \
             rec["memory_analysis"]["argument_size_in_bytes"] > 0
-    assert out["mixtral-8x22b/prefill_32k"]["moe_bodies"]["tp"] > 0
-    assert "master" in out["yi-9b/train_4k"]["placement"]["kinds"]
+    return out
+
+
+def test_lower_cell_reduced_every_shape_kind():
+    out = _lower("yi-9b,mixtral-8x22b")
+    assert len(out) == 6
+    assert out["mixtral-8x22b/prefill_32k/eager"]["moe_bodies"]["tp"] > 0
+    assert "master" in out["yi-9b/train_4k/eager"]["placement"]["kinds"]
+
+
+def test_lower_cell_reduced_mla_and_encdec():
+    """deepseek-v3 (MLA, the MoE EP body with its 4 experts over 4 ranks)
+    and whisper (its encoder through K1's op on the fake mesh too)."""
+    out = _lower("deepseek-v3-671b,whisper-small")
+    assert len(out) == 7
+    assert out["deepseek-v3-671b/prefill_32k/eager"]["moe_bodies"]["ep"] > 0
+    kern = out["whisper-small/prefill_32k/kernel"]["hlo_walk"]
+    eager = out["whisper-small/prefill_32k/eager"]["hlo_walk"]
+    assert kern["flops"] > 0 and kern["bytes"] < eager["bytes"]
+
+
+def test_lower_cell_reduced_recurrent_with_long_500k():
+    """zamba2 and xlstm in every shape kind and at long_500k (a
+    sequence-sharded cache over both mesh axes)."""
+    out = _lower("zamba2-7b,xlstm-350m", "zamba2-7b,xlstm-350m")
+    assert len(out) == 8
+    for arch in ("zamba2-7b", "xlstm-350m"):
+        place = out[f"{arch}/long_500k/eager"]["placement"]
+        assert place["seq_sharded_cache"] is True
+
+
+# --------------------------------------------------------------------------
+# The roofline table
+# --------------------------------------------------------------------------
+
+_RECORDS = r"""
+import json, sys
+from pathlib import Path
+from repro_torch.launch import dryrun
+dryrun.fake_world(4)
+from repro_torch.config.base import get_config
+out = Path(sys.argv[1])
+for arch, shape in (("yi-9b", "decode_32k"), ("yi-9b", "long_500k"),
+                    ("xlstm-350m", "prefill_32k")):
+    rec = dryrun.lower_cell(arch, shape, False, cfg=get_config(arch).reduced(),
+                            mesh_shape=(2, 2), batch=4, seq=32,
+                            device_type="cpu")
+    text = json.dumps(rec, default=str)
+    (out / f"{arch}_{shape}_2x2.json").write_text(text)
+    (out / f"{arch}_{shape}_2x2_smoke.json").write_text(text)   # tagged
+"""
+
+
+def test_roofline_table_matches_reference(tmp_path, capsys):
+    """The port's table over reduced records equals the reference's
+    ``benchmarks/roofline_table.py`` over the same records (its "compile
+    s" column fed the trace seconds); tagged records stay out."""
+    import importlib.util
+    from repro_torch.roofline import table
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", _RECORDS, str(tmp_path)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    spec = importlib.util.spec_from_file_location(
+        "ref_roofline_table", ROOT / "benchmarks" / "roofline_table.py")
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    recs = table.load("2x2", tmp_path)
+    assert [(r["arch"], r["shape"], r["status"]) for r in recs] == [
+        ("xlstm-350m", "prefill_32k", "ok"), ("yi-9b", "decode_32k", "ok"),
+        ("yi-9b", "long_500k", "skip(full-attn)")]
+    ref.load = lambda mesh: [dict(r, compile_s=r.get("lower_s"))
+                             for r in recs]
+    assert table.table("2x2", tmp_path) == ref.table("2x2")
+    assert table.dryrun_table("2x2", tmp_path) == ref.dryrun_table(
+        "2x2").replace("| compile s |", "| trace s |")
+    table.main(["--mesh", "2x2", "--dir", str(tmp_path)])
+    printed = capsys.readouterr().out
+    assert "### Roofline — mesh 2x2" in printed
+    assert printed.count("| yi-9b | decode_32k |") == 2

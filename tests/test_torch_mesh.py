@@ -1,16 +1,19 @@
 """The mesh path (repro_torch.launch.mesh, models.sharding, models.tp) vs
 the reference.
 
-The sharding rules and every leaf's spec equal the reference's exactly. A
-sharded model over four ``gloo`` processes (a 2x2 (data, model) mesh on the
+The sharding rules and every leaf's spec equal the reference's exactly.
+Every arch on a one-rank mesh equals the plain path bit for bit. A sharded
+model over four ``gloo`` processes (a 2x2 or 1x4 (data, model) mesh on the
 CPU) equals the reference's single-device model on the same weights, at
 the fp32 tolerances of ``tests/test_torch_model.py`` (prefill 2e-4, decode
 5e-4) and ``tests/test_torch_zoo_train.py`` (loss and gradients 2e-4):
 reduced yi-9b prefill, decode, ``Model.loss`` and its gradients with FSDP
 and sequence parallelism on and off and with 2-D serving weights; a
 reduced MoE with 2 experts (the tensor-parallel body: 2 experts < 4 ranks)
-and with 4 (the expert-parallel body). The four processes are spawned once
-for the file.
+and with 4 (the expert-parallel body); deepseek-v3's MLA under both
+bodies; zamba2, xlstm and whisper; and the layouts of their full widths
+that an even 2x2 split cannot show (``SCENARIOS``). The four processes are
+spawned once for the file.
 
 The EP body routes each rank's tokens on their own, as the reference's
 mesh does, so its load-balancing loss is a mean over ranks, not the
@@ -44,6 +47,9 @@ from repro_torch.models.transformer import model_specs
 
 PREFILL_TOL, DECODE_TOL, GRAD_TOL = 2e-4, 5e-4, 2e-4
 B, S, STEPS = 4, 16, 3
+# decode caches' length: a multiple of every mesh's model axis, so the
+# rules shard their sequence and decode takes the flash-decoding combine
+MAX_LEN = S + 4
 
 
 class _AbstractMesh:
@@ -122,12 +128,44 @@ def test_constrain_is_identity_on_plain_tensors():
     assert sharding.constrain(x, None, rules, ("act_batch", None)) is x
 
 
-@pytest.mark.parametrize("arch", ["whisper-small", "zamba2-7b",
-                                  "xlstm-350m", "deepseek-v3-671b"])
-def test_mesh_path_refuses_arch_by_name(arch):
-    from repro_torch.models.tp import check_mesh
-    with pytest.raises(NotImplementedError, match=arch):
-        check_mesh(get_config(arch))
+def _one_rank_batch(cfg, gen):
+    if cfg.encoder_decoder:
+        return {"frames": torch.randn(2, 8, cfg.d_model, generator=gen)}
+    if cfg.frontend == "vision":
+        return {"embeds": torch.randn(2, 8, cfg.d_model, generator=gen)}
+    return {"tokens": torch.randint(0, cfg.vocab_size, (2, 8),
+                                    generator=gen)}
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_one_rank_mesh_equals_plain_path(arch):
+    """Every arch runs on a mesh: on one rank its prefill and decode steps
+    are the plain path's, bit for bit."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import local_process_group, make_host_mesh
+    from repro_torch.models.model import Model
+    cfg = get_config(arch).reduced(dtype="float32")
+    plain = Model.create(cfg, device="cpu")
+    params = plain.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    batch = _one_rank_batch(cfg, gen)
+    start = 0 if cfg.encoder_decoder else 8
+
+    def whole(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+    with local_process_group("cpu"):
+        m = Model.create(cfg, ParallelConfig(), device="cpu",
+                         mesh=make_host_mesh(device_type="cpu"))
+        m.set_params(params)
+        with torch.no_grad():
+            want, wc = plain.prefill(params, batch, 12)
+            got, gc = m.prefill(m.params, batch, 12)
+            assert torch.equal(whole(got), want)
+            for i in range(3):
+                tok = torch.randint(0, cfg.vocab_size, (2, 1), generator=gen)
+                want, wc = plain.decode(params, wc, tok, start + i)
+                got, gc = m.decode(m.params, gc, tok, start + i)
+                assert torch.equal(whole(got), want), f"decode step {i}"
 
 
 def test_mesh_helpers_on_one_rank():
@@ -174,34 +212,88 @@ def test_one_rank_mesh_wraps_plain_leaves_without_copy():
 # Sharded forward, decode, loss and gradients over 4 gloo processes
 # --------------------------------------------------------------------------
 
-# name -> (arch, experts (None: the config's), fsdp, seq_parallel, loss,
-# serve_2d_weights)
+@dataclasses.dataclass(frozen=True)
+class Sc:
+    """A sharded scenario: the arch, its MoE experts (None: the reduced
+    config's), FSDP, sequence parallelism, what of the loss is compared
+    ("grads": loss and every gradient; "ce": the cross-entropy), 2-D
+    serving weights, the (data, model) mesh and overrides of the reduced
+    config."""
+    arch: str
+    experts: int | None = None
+    fsdp: bool = True
+    sp: bool = True
+    loss: str = "grads"
+    s2d: bool = False
+    mesh: tuple = (2, 2)
+    over: tuple = ()
+
+
 SCENARIOS = {
-    "dense_fsdp_sp": ("yi-9b", None, True, True, "grads", False),
-    "dense_tp": ("yi-9b", None, False, False, "grads", False),
-    "dense_serve_2d": ("yi-9b", None, True, False, "grads", True),
-    "moe_tp_body": ("mixtral-8x22b", 2, True, True, "grads", False),
-    "moe_ep_body": ("mixtral-8x22b", 4, True, False, "ce", False),
+    "dense_fsdp_sp": Sc("yi-9b"),
+    "dense_tp": Sc("yi-9b", fsdp=False, sp=False),
+    "dense_serve_2d": Sc("yi-9b", sp=False, s2d=True),
+    "moe_tp_body": Sc("mixtral-8x22b", 2),
+    "moe_ep_body": Sc("mixtral-8x22b", 4, sp=False, loss="ce"),
+    # MLA with the dense/MoE split and a shared expert, under both bodies
+    "mla_tp_body": Sc("deepseek-v3-671b", 2),
+    "mla_ep_body": Sc("deepseek-v3-671b", 4, fsdp=False, sp=False,
+                      loss="ce"),
+    # Mamba2 groups with the shared attention block; the mLSTM/sLSTM pair;
+    # the encoder-decoder: heads and vocabulary split evenly on 2x2
+    "zamba2": Sc("zamba2-7b"),
+    "xlstm": Sc("xlstm-350m"),
+    "whisper": Sc("whisper-small", sp=False),
+    # the full-width traps on a (1, 4) mesh: Mamba2's inner norm over 4
+    # ranks (one SSD head each); an xLSTM whose 64-wide heads are split 4
+    # ways (16 columns a rank, gates whole); a whisper whose 3 heads and
+    # 250-token vocabulary 4 does not divide (sequence-parallel, so its
+    # self and cross caches are sequence-sharded)
+    "zamba2_norm_1x4": Sc("zamba2-7b", mesh=(1, 4)),
+    "xlstm_split_head": Sc("xlstm-350m", mesh=(1, 4),
+                           over=(("num_heads", 2), ("head_dim", 64))),
+    "whisper_undivided": Sc("whisper-small", mesh=(1, 4),
+                            over=(("num_heads", 3), ("num_kv_heads", 3),
+                                  ("vocab_size", 250))),
 }
 
 
-def _cfg(get, arch, experts):
-    cfg = get(arch).reduced(dtype="float32")
-    if experts is not None:
+def _cfg(get, sc: Sc):
+    cfg = get(sc.arch).reduced(dtype="float32", **dict(sc.over))
+    if sc.experts is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, num_experts=experts))
+            cfg.moe, num_experts=sc.experts))
     return cfg
 
 
-def _inputs(vocab: int) -> dict:
+def _inputs(cfg) -> dict:
     rng = np.random.default_rng(0)
-    toks = rng.integers(0, vocab, (B, S + 1)).astype(np.int32)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
-            "steps": rng.integers(0, vocab, (STEPS, B, 1)).astype(np.int32)}
+    toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+           "steps": rng.integers(0, cfg.vocab_size,
+                                 (STEPS, B, 1)).astype(np.int32)}
+    if cfg.encoder_decoder:
+        out["frames"] = rng.standard_normal((B, S, cfg.d_model)).astype(
+            np.float32)
+    return out
+
+
+def _prompt(inp: dict, cfg, conv) -> tuple:
+    """(the prefill batch, the first decode position): whisper prefills
+    its frames and decodes from position 0."""
+    if cfg.encoder_decoder:
+        return {"frames": conv(inp["frames"])}, 0
+    return {"tokens": conv(inp["tokens"])}, S
+
+
+def _loss_batch(inp: dict, cfg, conv) -> dict:
+    keys = ("tokens", "labels") + (("frames",) if cfg.encoder_decoder
+                                   else ())
+    return {k: conv(inp[k]) for k in keys}
 
 
 def _worker(rank: int, port: int, work_dir: str) -> None:
-    """One rank of the 2x2 mesh: every scenario through the port's mesh
+    """One rank of the meshes: every scenario through the port's mesh
     path; rank 0 writes the whole values."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
@@ -213,44 +305,50 @@ def _worker(rank: int, port: int, work_dir: str) -> None:
         from repro_torch.models.model import Model
         from repro_torch.models.params import (tree_flatten,
                                                tree_unflatten)
-        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        meshes = {}
 
         def whole(t):
             t = t.full_tensor() if isinstance(t, DTensor) else t
             return t.detach().numpy()
+
+        def conv(a):
+            t = torch.from_numpy(np.array(a))
+            return t if t.is_floating_point() else t.long()
         results = {}
-        for name, (arch, experts, fsdp, sp, loss, s2d) in SCENARIOS.items():
+        for name, sc in SCENARIOS.items():
             with open(os.path.join(work_dir, f"{name}.pkl"), "rb") as f:
                 params_np, inp = pickle.load(f)
-            cfg = _cfg(get_config, arch, experts)
+            cfg = _cfg(get_config, sc)
+            if sc.mesh not in meshes:
+                meshes[sc.mesh] = make_mesh(sc.mesh, ("data", "model"),
+                                            "cpu")
             model = Model.create(cfg, ParallelConfig(
-                fsdp=fsdp, seq_parallel=sp, remat="full",
-                serve_2d_weights=s2d), device="cpu", mesh=mesh)
+                fsdp=sc.fsdp, seq_parallel=sc.sp, remat="full",
+                serve_2d_weights=sc.s2d), device="cpu",
+                mesh=meshes[sc.mesh])
             flat = tree_flatten(params_np)
             model.set_params(tree_unflatten(
                 [p for p, _ in flat],
                 [torch.from_numpy(np.array(v)) for _, v in flat]))
             moe.BODY_CALLS.update(ep=0, tp=0)
             out = {}
-            tokens = torch.from_numpy(inp["tokens"]).long()
+            prompt, start = _prompt(inp, cfg, conv)
             with torch.no_grad():
-                logits, cache = model.prefill(model.params,
-                                              {"tokens": tokens},
-                                              S + STEPS)
+                logits, cache = model.prefill(model.params, prompt,
+                                              MAX_LEN)
                 out["prefill"] = whole(logits)
                 for i in range(STEPS):
                     logits, cache = model.decode(
-                        model.params, cache,
-                        torch.from_numpy(inp["steps"][i]).long(), S + i)
+                        model.params, cache, conv(inp["steps"][i]),
+                        start + i)
                     out[f"decode{i}"] = whole(logits)
             pflat = tree_flatten(model.params)
             leaves = [p.detach().requires_grad_() for _, p in pflat]
-            batch = {"tokens": tokens,
-                     "labels": torch.from_numpy(inp["labels"]).long()}
             lval, parts = model.loss(
-                tree_unflatten([p for p, _ in pflat], leaves), batch)
+                tree_unflatten([p for p, _ in pflat], leaves),
+                _loss_batch(inp, cfg, conv))
             out["loss"], out["ce"] = float(lval), float(parts["ce"])
-            if loss == "grads":
+            if sc.loss == "grads":
                 grads = torch.autograd.grad(lval, leaves)
                 out["grads"] = {"/".join(p): whole(g) for (p, _), g in
                                 zip(pflat, grads)}
@@ -272,21 +370,21 @@ def _free_port() -> int:
 
 
 def _reference(name: str):
-    arch, experts = SCENARIOS[name][:2]
-    jcfg = _cfg(jax_get_config, arch, experts)
+    sc = SCENARIOS[name]
+    jcfg = _cfg(jax_get_config, sc)
     jm = JaxModel.create(jcfg, jax_host_mesh(),
                          JaxParallelConfig(remat="full"))
     jparams = jm.init(jax.random.key(3))
-    inp = _inputs(jcfg.vocab_size)
+    inp = _inputs(jcfg)
     out = {}
-    logits, cache = jm.prefill(jparams, {"tokens": jnp.asarray(
-        inp["tokens"])}, S + STEPS)
+    prompt, start = _prompt(inp, jcfg, jnp.asarray)
+    logits, cache = jm.prefill(jparams, prompt, MAX_LEN)
     out["prefill"] = np.asarray(logits)
     for i in range(STEPS):
         logits, cache = jm.decode(jparams, cache,
-                                  jnp.asarray(inp["steps"][i]), S + i)
+                                  jnp.asarray(inp["steps"][i]), start + i)
         out[f"decode{i}"] = np.asarray(logits)
-    batch = {k: jnp.asarray(inp[k]) for k in ("tokens", "labels")}
+    batch = _loss_batch(inp, jcfg, jnp.asarray)
     (loss, parts), grads = jax.value_and_grad(
         lambda p: jax_loss_fn(p, jcfg, jm.mctx, batch),
         has_aux=True)(jparams)
@@ -320,7 +418,7 @@ def sharded(tmp_path_factory):
     for p in procs:
         p.start()
     for p in procs:
-        p.join(timeout=300)
+        p.join(timeout=420)
     codes = [p.exitcode for p in procs]
     assert codes == [0, 0, 0, 0], codes
     with open(work / "out.pkl", "rb") as f:
@@ -342,7 +440,7 @@ def test_sharded_prefill_and_decode_match_reference(sharded, name):
 def test_sharded_loss_and_grads_match_reference(sharded, name):
     got, want = sharded[0][name], sharded[1][name]
     assert got["ce"] == pytest.approx(want["ce"], rel=GRAD_TOL)
-    if SCENARIOS[name][4] != "grads":
+    if SCENARIOS[name].loss != "grads":
         return
     assert got["loss"] == pytest.approx(want["loss"], rel=GRAD_TOL)
     assert got["grads"].keys() == want["grads"].keys()
@@ -368,3 +466,31 @@ def test_moe_bodies_and_placements(sharded):
         "(Shard(dim=1), Shard(dim=1))"
     assert res["moe_tp_body"]["placements"]["moe/moe/w_up"] == \
         "(Shard(dim=2), Shard(dim=3))"
+
+
+def test_mla_recurrent_and_encdec_layouts(sharded):
+    """The new archs' scenarios ran the layouts they stand for."""
+    res = sharded[0]
+    assert res["mla_tp_body"]["bodies"]["tp"] > 0
+    assert res["mla_ep_body"]["bodies"]["ep"] > 0
+    assert res["mla_ep_body"]["bodies"]["tp"] == 0
+    # MLA: up-projections on local heads, down-projections whole on 'model'
+    pl = res["mla_tp_body"]["placements"]
+    assert pl["dense/attn/w_uq"] == "(Replicate(), Shard(dim=2))"
+    assert pl["dense/attn/w_dq"] == "(Shard(dim=1), Replicate())"
+    assert pl["moe/moe/shared/w_up"] == "(Shard(dim=1), Shard(dim=2))"
+    # xLSTM split heads: 16 of a 64-wide head's columns a rank, gates and
+    # recurrent matrices whole
+    pl = res["xlstm_split_head"]["placements"]
+    assert pl["groups/mlstm/cell/w_q"] == "(Shard(dim=2), Shard(dim=3))"
+    assert pl["groups/mlstm/cell/w_i"] == "(Shard(dim=2), Replicate())"
+    assert pl["groups/slstm/cell/r_z"] == "(Replicate(), Replicate())"
+    # whisper: 3 heads and a 250-token vocabulary stay whole on 'model'
+    pl = res["whisper_undivided"]["placements"]
+    assert pl["decoder/attn/w_q"] == "(Shard(dim=1), Replicate())"
+    assert pl["embed/tok"] == "(Shard(dim=1), Replicate())"
+    assert pl["encoder/mlp/w_up"] == "(Shard(dim=1), Shard(dim=2))"
+    # Mamba2 over 4 ranks: one SSD head each, the inner norm's weight whole
+    pl = res["zamba2_norm_1x4"]["placements"]
+    assert pl["groups/mamba/ssm/w_x"] == "(Shard(dim=2), Shard(dim=3))"
+    assert pl["groups/mamba/ssm/norm"] == "(Replicate(), Replicate())"

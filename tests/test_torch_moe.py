@@ -99,6 +99,38 @@ def test_moe_ffn_matches_dense_expert_eval():
     assert float(aux) > 0
 
 
+@pytest.mark.parametrize("cf", [0.5, 4.0])
+def test_combine_is_the_sorted_scatter_add_in_bf16(cf):
+    """In bf16 the layer adds each token's gated expert outputs in the
+    order the reference's scatter-add over the expert-sorted pairs meets
+    them, rounding after each add: equal, bit for bit, to a sequential
+    scatter-add over those pairs, drops included (cf 0.5 drops)."""
+    cfg = _cfg(get_config, num_experts=4, top_k=3, capacity_factor=cf)
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    p = init_params(moe.moe_specs(cfg), torch.Generator().manual_seed(4),
+                    "cpu", torch.bfloat16)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(2, 16, cfg.d_model))
+                         .astype(np.float32)).bfloat16()
+    y, _ = moe.moe_ffn(p, x, cfg)
+
+    xt = x.reshape(-1, cfg.d_model)
+    T, E, k = xt.shape[0], 4, 3
+    C = moe._capacity(T, k, E, cf)
+    gates, eids, _ = moe._route(xt, p["router"], k)
+    se, st, pos, keep, order = moe._dispatch_indices(eids, E, C)
+    assert bool((~keep).any()) == (cf < 1.0)
+    buf = torch.zeros((E, C, cfg.d_model), dtype=x.dtype)
+    buf[se[keep], pos[keep]] = xt[st[keep]]
+    out = moe._expert_ffn(buf, p["w_gate"], p["w_up"], p["w_down"])
+    w = gates.reshape(-1)[order].to(x.dtype)
+    ref = torch.zeros_like(xt)
+    for i in range(T * k):                 # one add at a time, sorted
+        if keep[i]:
+            ref[st[i]] += out[se[i], pos[i]] * w[i]
+    assert torch.equal(y.reshape(T, -1), ref)
+
+
 def test_capacity_rounding():
     assert moe._capacity(100, 2, 8, 1.25) % 4 == 0
     assert moe._capacity(1, 1, 256, 1.25) == 4       # floor
