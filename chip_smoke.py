@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only models         # the model zoo
     python3 chip_smoke.py --only kernel         # K1's holds and timing
     python3 chip_smoke.py --only serve,mesh,dryrun  # the mesh path, dry-run
+    python3 chip_smoke.py --only heimdall,tooling   # the runner, examples
 
 Phases, one JSON line each, in this order (the train phases come first,
 while the host has the most memory to pin):
@@ -222,6 +223,36 @@ while the host has the most memory to pin):
                  computes the same attention (the window as a mask: cuDNN,
                  memory-efficient with GQA or on expanded K/V, math; each
                  tried, held and timed) and the bound of the unmasked work
+  tooling        HEIMDALL's runner and the four examples, as a user runs
+                 them: heimdall.run.main(["--json-out-dir", build/tooling])
+                 in this process, all nine families at the reference's
+                 default sizes (each family's stderr line ran=all,
+                 failed=0, no ERROR row; each family's wall); the six
+                 BENCH_<family>.json files held to every assertion of the
+                 reference CI's benchmark steps (.github/workflows/ci.yml:
+                 22-166, the thresholds read from each file where CI reads
+                 them; each value printed beside its limit); kv_quant's and
+                 obs's summaries equal to the CPU's but for obs's overhead
+                 timings; K1 (the obs family's engine), K2, K3 and P1-P4
+                 launched in the runner, K4 and K5 counted; then, as
+                 subprocesses started together, `python -m
+                 repro_torch.heimdall.run --families qos --json-out` (equal
+                 to the in-process BENCH_qos.json) and CI's two artifact
+                 steps through the port: a traced --paged-sim serve (a
+                 valid Chrome trace, metrics, OpenMetrics ending in # EOF)
+                 and --degrade-sim's flight recorder (valid, its reason not
+                 the fallback "dump"); quickstart on the card and on the
+                 CPU (its checkpoint directory removed first; arch,
+                 placement and cost-model lines equal, 10 finite losses, 8
+                 tokens a request in the vocabulary, one K1 launch a layer
+                 at head dim 16, the prefill logits within LOGITS_REL_L2 of
+                 the eager path's), serve_batched (both arms printed),
+                 offload_tuning with its defaults and with the card's
+                 memory, the heimdall phase's fitted host link and 989
+                 TFLOP/s, and train_tiny_lm's full deliverable (lm-100m,
+                 300 steps of 8 x 256, checkpoints at steps 75, 150 and 225
+                 into build/tooling/: 300 finite losses, improved; step
+                 wall, tokens/s, peak memory and checkpoint seconds)
   dryrun         python -m repro_torch.launch.dryrun in subprocesses, all
                  at once, after every timed phase (its processes load the
                  host's cores), on the fake 16x16 production mesh (a fake
@@ -3878,6 +3909,517 @@ def phase_models() -> dict:
     return out
 
 
+# HEIMDALL's runner and the examples (the reference CI's benchmark checks,
+# .github/workflows/ci.yml:22-166, on the BENCH files the card writes): each
+# check is (family, what, value, comparison, limit), the limit read from the
+# file's thresholds where CI reads it there.
+TOOLING_FAMILIES = ("micro", "interference", "kv_quant", "qos", "calibration",
+                    "obs", "resilience", "disagg", "apps")
+CI_CHECKS = [
+    ("kv_quant", "bytes_reduction", lambda d: d["bytes_reduction"],
+     ">=", lambda d: 1.8),
+    ("kv_quant", "prefetch_speedup", lambda d: d["prefetch_speedup"],
+     ">=", lambda d: 1.5),
+    ("qos", "eta_improvement", lambda d: d["eta_improvement"],
+     ">=", lambda d: 1.3),
+    ("qos", "single_flow_anchor.rel_err",
+     lambda d: d["single_flow_anchor"]["rel_err"], "<", lambda d: 1e-9),
+    *[("calibration", k, (lambda k: lambda d: d[k])(k), op,
+       (lambda k: lambda d: d["thresholds"][k])(k))
+      for k, op in (("fit_bw_err_max", "<="), ("fit_residual_max", "<="),
+                    ("validation_rel_err_max", "<="),
+                    ("error_reduction_min", ">="))],
+    ("obs", "overhead.overhead_frac",
+     lambda d: d["overhead"]["overhead_frac"], "<=",
+     lambda d: d["thresholds"]["max_overhead_frac"]),
+    ("obs", "overhead.attribution_overhead_frac",
+     lambda d: d["overhead"]["attribution_overhead_frac"], "<=",
+     lambda d: d["thresholds"]["max_attr_overhead_frac"]),
+    ("obs", "byte_conservation.max_rel_err",
+     lambda d: d["byte_conservation"]["max_rel_err"], "<=",
+     lambda d: d["thresholds"]["max_byte_rel_err"]),
+    ("obs", "attribution.top_degraded_frac",
+     lambda d: d["attribution"]["top_degraded_frac"], ">=",
+     lambda d: d["thresholds"]["min_attr_top_frac"]),
+    ("obs", "histogram.max_rel_err",
+     lambda d: d["histogram"]["max_rel_err"], "<=",
+     lambda d: d["thresholds"]["max_hist_rel_err"]),
+    ("obs", "drift.flagged_routes", lambda d: d["drift"]["flagged_routes"],
+     "==", lambda d: ["host_dram->chip0"]),
+    ("obs", "ledger.max_rel_err", lambda d: d["ledger"]["max_rel_err"],
+     "<=", lambda d: d["thresholds"]["max_ledger_rel_err"]),
+    ("obs", "efficiency.degraded_is_lowest",
+     lambda d: d["efficiency"]["degraded_is_lowest"], "==", lambda d: True),
+    ("obs", "efficiency.lowest", lambda d: d["efficiency"]["lowest"],
+     "==", lambda d: "host_dram->chip0:pcie"),
+    ("obs", "recalibration.n_recals",
+     lambda d: d["recalibration"]["n_recals"], ">=", lambda d: 1),
+    ("obs", "recalibration.max_post_ratio",
+     lambda d: d["recalibration"]["max_post_ratio"], "<=",
+     lambda d: d["thresholds"]["max_post_recal_ratio"]),
+    ("obs", "recalibration.eta_rel_err",
+     lambda d: d["recalibration"]["eta_rel_err"], "<=",
+     lambda d: d["thresholds"]["max_recal_eta_rel_err"]),
+    ("obs", "recalibration.flagged_after",
+     lambda d: d["recalibration"]["flagged_after"], "==", lambda d: []),
+    ("obs", "openmetrics.valid", lambda d: d["openmetrics"]["valid"],
+     "==", lambda d: True),
+    ("resilience", "recovery.frac", lambda d: d["recovery"]["frac"], ">=",
+     lambda d: d["thresholds"]["min_recovery_frac"]),
+    ("resilience", "detect.latency_rounds",
+     lambda d: d["detect"]["latency_rounds"], "<=",
+     lambda d: d["thresholds"]["max_detect_rounds"]),
+    ("resilience", "slo.violations_react",
+     lambda d: d["slo"]["violations_react"], "<",
+     lambda d: d["slo"]["violations_baseline"]),
+    ("resilience", "hot_remove.react_recovery_frac",
+     lambda d: d["hot_remove"]["react_recovery_frac"], ">=",
+     lambda d: d["thresholds"]["min_recovery_frac"]),
+    ("resilience", "detector_overhead_us",
+     lambda d: d["detector_overhead_us"], "<=",
+     lambda d: d["thresholds"]["max_detector_overhead_us"]),
+    ("disagg", "overlap_speedup", lambda d: d["overlap_speedup"], ">=",
+     lambda d: d["thresholds"]["overlap_speedup_min"]),
+    ("disagg", "deadline_violations", lambda d: d["deadline_violations"],
+     "<=", lambda d: d["thresholds"]["deadline_violations_max"]),
+    ("disagg", "route_choice.nominal_staging",
+     lambda d: d["route_choice"]["nominal_staging"], "==", lambda d: None),
+    ("disagg", "route_choice.degraded_staging",
+     lambda d: d["route_choice"]["degraded_staging"], "==",
+     lambda d: "host_dram"),
+    ("disagg", "compressed_ship.bytes_reduction",
+     lambda d: d["compressed_ship"]["bytes_reduction"], ">=",
+     lambda d: 1.8),
+]
+CI_OPS = {">=": lambda v, lim: v is not None and v >= lim,
+          "<=": lambda v, lim: v is not None and v <= lim,
+          "<": lambda v, lim: v is not None and v < lim,
+          "==": lambda v, lim: v == lim}
+# summaries whose values do not depend on where the pools live: the card's
+# must equal the CPU's, but for the obs family's measured overhead timings
+TOOLING_SAME_AS_CPU = {"kv_quant": (), "obs": ("overhead",)}
+QUICKSTART_HELD = ("arch=", "placement:", "cost-model optimal offload:")
+TINY_LM = {"steps": 300, "batch": 8, "seq": 256, "every": 75}
+CLI_TIMEOUT_S = 300
+
+
+def ci_bench_checks(bench: dict) -> list:
+    """Every assertion of the reference CI's benchmark steps on the BENCH
+    files, each with its value and its limit."""
+    rows = []
+    for fam, what, value, op, limit in CI_CHECKS:
+        d = bench[fam]
+        v, lim = value(d), limit(d)
+        rows.append({"family": fam, "check": what, "value": v, "op": op,
+                     "limit": lim, "ok": bool(CI_OPS[op](v, lim))})
+    return rows
+
+
+def timed_calls(key: str, fn, walls: list):
+    """``fn`` (its name kept) appending ``(key, wall s)`` to ``walls`` at
+    each call."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            walls.append((key, time.perf_counter() - t0))
+    return call
+
+
+@contextlib.contextmanager
+def timed_families(run, walls: list):
+    """The runner's benchmarks and summaries, each call timed under its
+    family's name (``"<family> summary"`` for a summary)."""
+    from unittest import mock
+    fams = {f: [timed_calls(f, fn, walls) for fn in fns]
+            for f, fns in run._families().items()}
+    summary_fn = run._summary_fn
+    with mock.patch.object(run, "_families", lambda: fams), \
+            mock.patch.object(run, "_summary_fn", lambda f: timed_calls(
+                f"{f} summary", summary_fn(f), walls)):
+        yield
+
+
+def run_main(main, argv: list) -> tuple:
+    """(exit code, return value, stdout, stderr) of an entry point's
+    ``main(argv)`` called in this process."""
+    import io
+    out, err = io.StringIO(), io.StringIO()
+    code, value = 0, None
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            value = main(argv)
+        except SystemExit as e:
+            code = 0 if e.code is None else e.code
+    return code, value, out.getvalue(), err.getvalue()
+
+
+@contextlib.contextmanager
+def checkpoint_walls(walls: list):
+    """Each checkpoint's host snapshot and file write, timed where
+    ``checkpoint/ckpt.py`` does them (the write on its worker thread)."""
+    from unittest import mock
+
+    from repro_torch.checkpoint import ckpt
+    with mock.patch.object(ckpt, "_snapshot", timed_calls(
+            "snapshot", ckpt._snapshot, walls)), \
+            mock.patch.object(ckpt, "_write", timed_calls(
+                "write", ckpt._write, walls)):
+        yield
+
+
+def _tooling_runner(dest: Path) -> tuple:
+    """HEIMDALL's runner in this process on the card, all nine families at
+    the reference's default sizes, BENCH files into ``dest``."""
+    from repro_torch import kernels
+    from repro_torch.heimdall import run
+
+    fams = run._families()
+    walls: list = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with timed_families(run, walls):
+        code, _, csv, err = run_main(run.main,
+                                     ["--json-out-dir", str(dest)])
+    family_s: dict = {}
+    for key, dt in walls:
+        family_s[key] = family_s.get(key, 0.0) + dt
+    out = {"wall_s": time.perf_counter() - t0, "exit": code,
+           "family_s": family_s, "launches": dict(kernels.LAUNCHES)}
+    (dest / "run.csv").write_text(csv)
+    (dest / "run.err").write_text(err)
+    status = {ln.split(":")[0][len("family "):]: ln.split(": ", 1)[1]
+              for ln in err.splitlines() if ln.startswith("family ")}
+    out["status"] = status
+    out["rows"] = csv.count("\n") - 1
+    fails = [f"runner exit {code}"] if code else []
+    fails += [f"family {f}: {status.get(f)}, expected "
+              f"ran={len(fams[f])} skipped=0 failed=0"
+              for f in TOOLING_FAMILIES if status.get(f) !=
+              f"ran={len(fams[f])} skipped=0 failed=0"]
+    fails += [f"ERROR row: {ln}" for ln in csv.splitlines()
+              if ",ERROR," in ln]
+    if fails:
+        print(err[-8000:], file=sys.stderr)
+    return out, fails
+
+
+def _tooling_cli(dest: Path) -> dict:
+    """The entry points as users type them, in subprocesses started
+    together: the runner's qos family, and CI's two artifact steps (a
+    traced --paged-sim serve, a flight-recorder dump of --degrade-sim)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cli = dest / "cli"
+    cli.mkdir()
+    jobs = {"qos": ["repro_torch.heimdall.run", "--families", "qos",
+                    "--json-out", str(cli / "BENCH_qos.json")],
+            "paged_sim": ["repro_torch.launch.serve", "--paged-sim",
+                          "--trace-out", str(cli / "trace.json"),
+                          "--metrics-out", str(cli / "metrics.json"),
+                          "--openmetrics-out", str(cli / "openmetrics.txt")],
+            "degrade_sim": ["repro_torch.launch.serve", "--degrade-sim",
+                            "--recorder-out",
+                            str(cli / "flight_recorder.json")]}
+    procs = {}
+    for name, argv in jobs.items():
+        log = open(cli / f"{name}.out", "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-m", *argv], cwd=ROOT, env=env, stdout=log,
+            stderr=subprocess.STDOUT), log)
+    return procs
+
+
+def _tooling_cli_check(procs: dict, cli: Path, bench: dict) -> tuple:
+    """Wait for ``_tooling_cli``'s processes and check what they wrote."""
+    from repro_torch.obs import validate_chrome_trace
+    fails = []
+    out = {}
+    for name, (p, log) in procs.items():
+        try:
+            code = p.wait(timeout=CLI_TIMEOUT_S)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        out[f"{name}_exit"] = code
+        if code:
+            fails.append(f"{name} exited {code}: "
+                         f"{(cli / f'{name}.out').read_text()[-2000:]}")
+    if fails:
+        return out, fails
+    qos = json.loads((cli / "BENCH_qos.json").read_text())
+    if qos != bench["qos"]:
+        fails.append("the CLI's BENCH_qos.json differs from the runner's "
+                     "in-process one")
+    trace = json.loads((cli / "trace.json").read_text())
+    out["paged_sim_trace"] = dict(validate_chrome_trace(trace))
+    out["metrics_keys"] = len(json.loads(
+        (cli / "metrics.json").read_text()))
+    om = (cli / "openmetrics.txt").read_text()
+    out["openmetrics_lines"] = om.count("\n")
+    if not om.endswith("# EOF\n"):
+        fails.append("openmetrics.txt does not end in # EOF")
+    rec = json.loads((cli / "flight_recorder.json").read_text())
+    out["recorder_trace"] = dict(validate_chrome_trace(rec))
+    md = rec["metadata"]
+    out["recorder"] = {"reason": md["reason"], "events": md["events"]}
+    if md["reason"] == "dump":
+        fails.append("the flight recorder's dump is the fallback "
+                     "('dump'), not a triggered snapshot")
+    return out, fails
+
+
+def _tooling_quickstart(dest: Path) -> tuple:
+    """quickstart on the card and on the CPU: the placement and cost-model
+    lines equal, finite losses, 8 tokens a request in the vocabulary, K1
+    launched once a layer in its serve's prefill and its prefill logits
+    within LOGITS_REL_L2 of the eager path's on the same weights."""
+    import tempfile
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.config.base import ParallelConfig
+    from repro_torch.examples import quickstart
+    from repro_torch.models.model import Model
+
+    fails, runs = [], {}
+    for where in ("cuda", "cpu"):
+        # train() resumes from the newest checkpoint in the example's own
+        # scratch directory: every run starts without it
+        shutil.rmtree(quickstart.checkpoint_dir(), ignore_errors=True)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        code, runs[where], text, err = run_main(quickstart.main,
+                                                ["--device", where])
+        runs[where]["wall_s"] = time.perf_counter() - t0
+        runs[where]["k1"] = kernels.LAUNCHES["flash_attention"]
+        runs[where]["lines"] = text.splitlines()
+        (dest / f"quickstart_{where}.out").write_text(text + err)
+        if code:
+            fails.append(f"quickstart on {where} exited {code}")
+    shutil.rmtree(quickstart.checkpoint_dir(), ignore_errors=True)
+    card = runs["cuda"]
+    held = {w: [ln for ln in r["lines"] if ln.startswith(QUICKSTART_HELD)]
+            for w, r in runs.items()}
+    if held["cuda"] != held["cpu"] or len(held["cuda"]) != 3:
+        fails.append(f"quickstart's deterministic lines differ: {held}")
+    hist = card["train"]["history"]
+    small = card["engine"].cfg
+    toks = [r.tokens for r in card["results"]]
+    if len(hist) != 10 or not all(math.isfinite(x) for x in hist):
+        fails.append(f"quickstart's losses: {hist}")
+    if any(len(t) != 8 or min(t) < 0 or max(t) >= small.vocab_size
+           for t in toks):
+        fails.append(f"quickstart's tokens: {toks}")
+    if card["k1"] != small.num_layers:
+        fails.append(f"K1 launched {card['k1']} times in quickstart's "
+                     f"serve; expected {small.num_layers}")
+    engine = card["engine"]
+    batch = _left_pad_batch(card["requests"], "cuda")
+    params = engine.model.params
+    eager = Model.create(small, ParallelConfig(attention_kernel="eager"))
+    with torch.inference_mode():
+        lk, _ = engine.model.prefill(params, batch)
+        le, _ = eager.prefill(params, batch)
+    lk, le = lk.float(), le.float()
+    rel_l2 = ((lk - le).norm() / le.norm()).item()
+    if not (torch.isfinite(lk).all() and rel_l2 <= LOGITS_REL_L2):
+        fails.append(f"quickstart's K1 prefill logits: relative L2 "
+                     f"{rel_l2} from the eager path's > {LOGITS_REL_L2}")
+    out = {"held_lines": held["cuda"], "losses": [hist[0], hist[-1]],
+           "tokens": toks, "k1_launches": card["k1"],
+           "head_dim": small.head_dim,
+           "logits_rel_l2_kernel_vs_eager": rel_l2,
+           "logits_rel_l2_bound": LOGITS_REL_L2,
+           "serve_line": card["lines"][-1],
+           "wall_s": {w: r["wall_s"] for w, r in runs.items()}}
+    return out, fails
+
+
+def _tooling_tiny_lm(dest: Path) -> tuple:
+    """train_tiny_lm's full deliverable on the card: lm-100m, 300 steps of
+    batch 8 x 256, remat full, checkpoints every 75 steps into a fresh
+    directory under build/."""
+    import torch
+    from repro_torch.examples import train_tiny_lm
+
+    ckpt_dir = dest / "lm100m_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    walls: list = []
+    t0 = time.perf_counter()
+    with checkpoint_walls(walls):
+        code, tr, text, err = run_main(train_tiny_lm.main,
+                                       ["--ckpt-dir", str(ckpt_dir)])
+    wall = time.perf_counter() - t0
+    (dest / "train_tiny_lm.out").write_text(text + err)
+    fails = [f"train_tiny_lm exited {code}"] if code else []
+    if fails:
+        return {}, fails
+    hist, step_s = tr["history"], sorted(tr["step_s"][1:])
+    final = json.loads(text.splitlines()[-1])
+    saved = sorted(p.name for p in ckpt_dir.iterdir())
+    want = [f"step_{s:08d}" for s in range(TINY_LM["every"],
+                                            TINY_LM["steps"],
+                                            TINY_LM["every"])]
+    med = step_s[len(step_s) // 2]
+    out = {"config_line": text.splitlines()[0], "final": final,
+           "steps": len(hist), "first_loss": hist[0],
+           "final_loss": hist[-1],
+           "step_median_ms": med * 1e3, "step_max_ms": step_s[-1] * 1e3,
+           "first_step_ms": tr["step_s"][0] * 1e3,
+           "tokens_per_s": TINY_LM["batch"] * TINY_LM["seq"] / med,
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "init_s": tr["init_s"], "wall_s": wall,
+           "checkpoints": saved,
+           "checkpoint_snapshot_s": [w for k, w in walls if k == "snapshot"],
+           "checkpoint_write_s": [w for k, w in walls if k == "write"]}
+    if len(hist) != TINY_LM["steps"] or not all(math.isfinite(x)
+                                                for x in hist):
+        fails.append(f"train_tiny_lm: {len(hist)} losses, finite: "
+                     f"{all(math.isfinite(x) for x in hist)}")
+    if final["improved"] is not True or not hist[-1] < hist[0]:
+        fails.append(f"train_tiny_lm did not improve: {final}")
+    if saved != want:
+        fails.append(f"train_tiny_lm's checkpoints {saved}, expected "
+                     f"{want}")
+    shutil.rmtree(ckpt_dir)                 # 3 x 1.23 GB of state
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, fails
+
+
+def phase_tooling(host_gb_per_s=None) -> dict:
+    """HEIMDALL's runner and the four examples on the card: (a)
+    ``heimdall.run.main(["--json-out-dir", ...])`` in this process, all
+    nine families at the reference's default sizes, every family ran and
+    none failed, the six BENCH files held to every assertion of the
+    reference CI's benchmark steps, kv_quant's and obs's summaries equal
+    to the CPU's but for obs's overhead timings, the launches counted; (b)
+    ``python -m repro_torch.heimdall.run --families qos --json-out`` and
+    CI's two artifact steps (a traced ``--paged-sim`` serve, the flight
+    recorder of ``--degrade-sim``) as subprocesses; (c) quickstart,
+    serve_batched, offload_tuning (its defaults, then the card's memory,
+    its fitted host link ``host_gb_per_s`` and 989 TFLOP/s) and
+    train_tiny_lm's full deliverable."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.examples import offload_tuning, serve_batched
+    from repro_torch.heimdall import kv_quant, obs
+
+    dest = ROOT / "build" / "tooling"
+    shutil.rmtree(dest, ignore_errors=True)
+    dest.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    import torch.distributed as dist
+    out = {"phase": "tooling",
+           "process_group_at_start": dist.is_available()
+           and dist.is_initialized()}
+    runner, fails = _tooling_runner(dest)
+    bench = {f: json.loads((dest / f"BENCH_{f}.json").read_text())
+             for f in ("kv_quant", "qos", "calibration", "obs",
+                       "resilience", "disagg")
+             if (dest / f"BENCH_{f}.json").exists()}
+    if len(bench) != 6:
+        fails.append(f"BENCH files written: {sorted(bench)}")
+    lc = runner.pop("launches")
+    runner["launches"] = {
+        "K1": lc["flash_attention"], "K2": lc["paged_attention"],
+        "K3": lc["paged_attention_quant"], "K4": lc["quantize_pages"],
+        "K5": lc["dequantize_pages"],
+        **{p: lc[p] for p in PROBES}}
+    fails += [f"{k} never launched in the runner's families"
+              for k in ("K1", "K2", "K3", *PROBES)
+              if runner["launches"][k] == 0]
+    out["runner"] = runner
+    out["process_group_after_runner"] = dist.is_initialized()
+    procs = _tooling_cli(dest)
+    try:
+        checks = ci_bench_checks(bench) if len(bench) == 6 else []
+        fails += [f"CI check {c['family']} {c['check']}: {c['value']} "
+                  f"{c['op']} {c['limit']} fails" for c in checks
+                  if not c["ok"]]
+        out["ci_checks"] = [[c["family"], c["check"], c["value"], c["op"],
+                             c["limit"]] for c in checks]
+        t0 = time.perf_counter()
+        # obs's overhead entry is wall-clock, left out of the comparison:
+        # the CPU's summary takes the card's instead of timing 100 CPU
+        # serves (a minute of the phase) that nothing reads
+        from unittest import mock
+        card_fracs = obs._overhead_fracs(torch.device("cuda"))
+        with mock.patch.object(obs, "_overhead_fracs",
+                               lambda device: card_fracs):
+            cpu = {"kv_quant": kv_quant.bench_summary(device="cpu"),
+                   "obs": obs.obs_summary(device="cpu")}
+        out["cpu_summaries_s"] = time.perf_counter() - t0
+        for fam, timed in TOOLING_SAME_AS_CPU.items():
+            card = {k: v for k, v in bench.get(fam, {}).items()
+                    if k not in timed}
+            _same_reports(f"BENCH_{fam}.json", card,
+                          {k: v for k, v in json.loads(json.dumps(
+                              cpu[fam])).items() if k not in timed})
+        t0 = time.perf_counter()
+        out["cli"], bad = _tooling_cli_check(procs, dest / "cli", bench)
+        out["cli"]["wait_s"] = time.perf_counter() - t0
+        fails += bad
+    finally:
+        for p, log in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+
+    t0 = time.perf_counter()
+    out["quickstart"], bad = _tooling_quickstart(dest)
+    out["quickstart"]["phase_s"] = time.perf_counter() - t0
+    fails += bad
+    kernels.reset_launches()
+    code, arms, _, _ = run_main(serve_batched.main, [])
+    out["serve_batched"] = {**(arms or {}), "k1_launches":
+                            kernels.LAUNCHES["flash_attention"]}
+    if code or sorted(arms or {}) != ["hbm", "host_sync_offload"]:
+        fails.append(f"serve_batched: exit {code}, {arms}")
+    card_mem = torch.cuda.get_device_properties(0).total_memory
+    if host_gb_per_s is None:
+        host_gb_per_s = fitted_host_link()
+    tuning = {"defaults": [], "card": [
+        "--hbm-gib", f"{card_mem / 2**30:.2f}",
+        # the example reads --link-gbs in GiB/s
+        "--link-gbs", f"{host_gb_per_s * 1e9 / 2**30:.2f}",
+        "--peak-tflops", "989"]}
+    out["offload_tuning"] = {}
+    for name, argv in tuning.items():
+        code, _, text, _ = run_main(offload_tuning.main, argv)
+        out["offload_tuning"][name] = {"argv": argv,
+                                       "lines": text.splitlines()[-2:]}
+        (dest / f"offload_tuning_{name}.out").write_text(text)
+        if code or "paper-faithful optimum" not in text:
+            fails.append(f"offload_tuning {argv}: exit {code}")
+    out["offload_tuning"]["host_link_gb_per_s"] = host_gb_per_s
+    out["train_tiny_lm"], bad = _tooling_tiny_lm(dest)
+    fails += bad
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return out
+
+
+def fitted_host_link() -> float:
+    """The host link's bandwidth (GB/s) as the heimdall phase fits it, for
+    a run of the tooling phase without that phase."""
+    import torch
+    from repro_torch.calibrate import CalibrationRunner
+    profile = CalibrationRunner("tpu_v5e", source="torch",
+                                device=torch.device("cuda", 0)).calibrate()
+    return profile.estimate("host_dram", "chip0").bandwidth / 1e9
+
+
 PAGED_SOURCES = {
     "paged_attention": ("src/repro_torch/kernels/paged_attention/csrc/"
                         "paged_attention.cu",
@@ -4060,6 +4602,7 @@ def phase_all() -> None:
     phase_paged_sim()
     phase_kv_quant()
     models = phase_models()
+    phase_tooling(heimdall["host_link"]["fitted_gb_per_s"])
     # last: its processes load the host's cores, which the timed phases'
     # host-bound loops would share
     phase_dryrun(mesh)
@@ -4089,7 +4632,7 @@ ONLY = {"serve": phase_serve, "serve_offload": phase_serve_offload,
         "pager": phase_pager, "paged_kernels": phase_paged_kernels,
         "degrade": phase_degrade, "disagg": phase_disagg,
         "heimdall": phase_heimdall, "models": phase_models,
-        "kernel": phase_kernel}
+        "kernel": phase_kernel, "tooling": phase_tooling}
 
 
 def main(argv=None) -> int:
@@ -4124,7 +4667,7 @@ def main(argv=None) -> int:
 
 def run_phases(only: list) -> None:
     if only:
-        tokens, serve, mesh = None, None, None
+        tokens, serve, mesh, host = None, None, None, None
         for name in only:
             if name == "serve_offload":
                 phase_serve_offload(tokens)
@@ -4136,6 +4679,10 @@ def run_phases(only: list) -> None:
                 serve = None
             elif name == "dryrun":
                 phase_dryrun(mesh)
+            elif name == "heimdall":
+                host = phase_heimdall()["host_link"]["fitted_gb_per_s"]
+            elif name == "tooling":
+                phase_tooling(host)
             else:
                 ONLY[name]()
     else:

@@ -1,6 +1,5 @@
-"""HEIMDALL benchmark families: the timing harness and the kv_quant,
-interference, qos, disagg and resilience families.
-
-The reference's other families come with the slices that port their
-layers.
+"""HEIMDALL benchmark families: the timing harness, the micro, apps,
+interference, kv_quant, qos, calibration, obs, resilience and disagg
+families, and their runner (``python -m repro_torch.heimdall.run``, the
+reference's ``benchmarks/run.py``).
 """

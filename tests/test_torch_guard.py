@@ -39,7 +39,10 @@ def test_port_imports_neither_jax_nor_repro():
                      "configs.gemma3_27b", "configs.mixtral_8x22b",
                      "configs.deepseek_v3_671b", "configs.zamba2_7b",
                      "configs.xlstm_350m", "configs.whisper_small",
-                     "configs.qwen2_vl_72b", "launch.inputs"):
+                     "configs.qwen2_vl_72b", "launch.inputs",
+                     "heimdall.run", "examples.quickstart",
+                     "examples.serve_batched", "examples.offload_tuning",
+                     "examples.train_tiny_lm"):
             assert "repro_torch." + name in names, name
         from repro_torch.configs import list_archs
         assert {{"gemma3-27b", "mixtral-8x22b", "deepseek-v3-671b",
