@@ -1395,11 +1395,14 @@ def phase_serve() -> dict:
     from repro_torch.config.base import ParallelConfig, get_config
     from repro_torch.launch.serve import Request, ServeEngine, make_requests
     from repro_torch.models.model import Model
+    from repro_torch.obs import Tracer
 
     cfg = get_config("yi-9b")                       # full width
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine = ServeEngine(cfg)                       # cuda, attention kernel
+    # cuda, attention kernel; traced, so that every decode step's wall
+    # feeds the engine's straggler stats
+    engine = ServeEngine(cfg, tracer=Tracer())
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     reqs = make_requests(cfg, N_REQUESTS, PROMPT, GEN)
@@ -2017,7 +2020,7 @@ def phase_serve_offload(serve_tokens=None) -> dict:
     del dev, got, check
 
     r0 = results[0]
-    steps = sorted(engine.straggler.times[-GEN - per:-per])
+    steps = sorted(engine.straggler.times[-GEN:])     # the traced run's
     stream_s = statistics.median(s for _, s in streams)
     overlap = (stream_s + compute_s - both_s) / min(stream_s, compute_s)
     fetch_med = statistics.median(fetch_s)
@@ -4670,6 +4673,9 @@ def run_phases(only: list) -> None:
         tokens, serve, mesh, host = None, None, None, None
         for name in only:
             if name == "serve_offload":
+                # as in phase_all, the serve phase's weights go first: on
+                # the card they would count as left between offloaded calls
+                serve = None
                 phase_serve_offload(tokens)
             elif name == "serve":
                 serve = phase_serve()

@@ -67,13 +67,16 @@ import numpy as np
 import torch
 
 from repro_torch.config.base import ParallelConfig, get_config
-from repro_torch.core.offload import fetch_to_device, put_tree
+from repro_torch.core.offload import OffloadStats, fetch_to_device, put_tree
 from repro_torch.models.context import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.obs import (NULL_TRACER, BandwidthLedger, FlightRecorder,
                              Tracer, openmetrics_text, serve_openmetrics,
                              write_chrome_trace, write_openmetrics)
 from repro_torch.runtime.fault import StragglerStats
+
+
+ENGINE_TRACK = ("serving", "engine")
 
 
 @dataclasses.dataclass
@@ -111,11 +114,16 @@ class ServeEngine:
         device copy is freed; every prefill and decode call then fetches
         the whole tree to the device and drops it after use.
 
-        Observability as in the reference: wall-clock prefill/decode-step
-        spans plus a ``StragglerStats`` fed one sample per decode step,
-        whose summary lands in the metrics snapshot. ``slo`` optionally
-        attaches an ``obs.SLOMonitor``: one latency observation per
-        finished request (class "serve").
+        Observability: the reference's wall-clock ``serve.prefill`` and
+        ``serve.decode_step`` spans, each split by spans nested in it:
+        ``offload.fetch`` (offloaded only; ``bytes``, the tree's),
+        ``model.prefill`` / ``model.decode`` (the host issuing the model's
+        work and the argmax) and ``serve.readback`` (the host waiting for
+        the device). Every span of a batch carries its ``batch_id``. While
+        the tracer is on, a ``StragglerStats`` is fed one sample per decode
+        step, and its summary lands in the metrics snapshot. ``slo``
+        optionally attaches an ``obs.SLOMonitor``: one latency observation
+        per finished request (class "serve").
 
         The engine serves token prompts, so an encoder-decoder config
         (whisper) is refused here: its prefill takes frames, which no
@@ -137,9 +145,13 @@ class ServeEngine:
         gen = torch.Generator(device=self.model.device).manual_seed(rng_seed)
         self.model.init(gen, dtype=torch.bfloat16)
         self.offload = offload_weights
+        self.batches = 0             # batch ids handed out by prefill
         if offload_weights:
             self.model.set_params(put_tree(self.model.params, "pinned_host",
                                            self.device))
+            stats = OffloadStats()
+            stats.record(self.params_home, "to_device")
+            self.fetch_bytes = stats.bytes_to_device
 
     @property
     def device(self) -> torch.device:
@@ -151,10 +163,13 @@ class ServeEngine:
         in the host tier when offloaded."""
         return self.model.params
 
-    def _params(self) -> dict:
+    def _params(self, batch_id: int) -> dict:
         """Paper-faithful sync fetch when offloaded (copy-on-demand)."""
         if self.offload:
-            return fetch_to_device(self.params_home, self.device)
+            with self.tracer.span("offload.fetch", track=ENGINE_TRACK,
+                                  cat="serve", batch_id=batch_id,
+                                  bytes=self.fetch_bytes):
+                return fetch_to_device(self.params_home, self.device)
         return self.params_home
 
     @torch.inference_mode()
@@ -169,22 +184,29 @@ class ServeEngine:
             toks[i, plen - len(r.prompt):] = r.prompt   # left-pad
         if tracer.enabled:
             for r in requests:
-                tracer.instant("serve.admit", track=("serving", "engine"),
+                tracer.instant("serve.admit", track=ENGINE_TRACK,
                                cat="serve", rid=r.rid,
                                prompt_len=len(r.prompt), max_new=r.max_new)
+        self.batches += 1
+        bid = self.batches
         t0 = time.perf_counter()
         max_new = max(r.max_new for r in requests)
-        with tracer.span("serve.prefill", track=("serving", "engine"),
-                         cat="serve", batch=B, prompt_len=plen):
-            params = self._params()
-            batch = {"tokens": torch.from_numpy(toks).to(self.device)}
-            logits, cache = self.model.prefill(params, batch, plen + max_new)
-            del params           # a fetched tree lives for one call only
-            tok = torch.argmax(logits, dim=-1)
-            _sync(self.device)
+        with tracer.span("serve.prefill", track=ENGINE_TRACK, cat="serve",
+                         batch=B, prompt_len=plen, batch_id=bid):
+            params = self._params(bid)
+            with tracer.span("model.prefill", track=ENGINE_TRACK,
+                             cat="serve", batch_id=bid):
+                batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+                logits, cache = self.model.prefill(params, batch,
+                                                   plen + max_new)
+                del params       # a fetched tree lives for one call only
+                tok = torch.argmax(logits, dim=-1)
+            with tracer.span("serve.readback", track=ENGINE_TRACK,
+                             cat="serve", batch_id=bid):
+                _sync(self.device)
         prefill_ms = (time.perf_counter() - t0) * 1e3
         return PrefillHandoff(requests, cache, tok, plen, max_new,
-                              prefill_ms)
+                              prefill_ms, bid)
 
     @torch.inference_mode()
     def decode(self, handoff: "PrefillHandoff") -> list[Result]:
@@ -193,27 +215,33 @@ class ServeEngine:
         requests = handoff.requests
         B = len(requests)
         tracer = self.tracer
-        cache, tok = handoff.cache, handoff.tok
+        cache, tok, bid = handoff.cache, handoff.tok, handoff.batch_id
         outs = [[] for _ in requests]
+        traced = tracer.enabled
         t0 = time.perf_counter()
         for s in range(handoff.max_new):
             ts = time.perf_counter()
-            with tracer.span("serve.decode_step",
-                             track=("serving", "engine"), cat="serve",
-                             step=s, batch=B):
-                params = self._params()
-                logits, cache = self.model.decode(params, cache, tok,
-                                                  handoff.plen + s)
-                del params       # dropped before the next step's fetch
-                tok = torch.argmax(logits, dim=-1)
-                # one device read for the whole batch, not B scalar reads
-                tok_host = tok.cpu().numpy()
-            # per-step wall time feeds the straggler detector
-            self.straggler.record(time.perf_counter() - ts)
+            with tracer.span("serve.decode_step", track=ENGINE_TRACK,
+                             cat="serve", step=s, batch=B, batch_id=bid):
+                params = self._params(bid)
+                with tracer.span("model.decode", track=ENGINE_TRACK,
+                                 cat="serve", batch_id=bid, step=s):
+                    logits, cache = self.model.decode(params, cache, tok,
+                                                      handoff.plen + s)
+                    del params   # dropped before the next step's fetch
+                    tok = torch.argmax(logits, dim=-1)
+                with tracer.span("serve.readback", track=ENGINE_TRACK,
+                                 cat="serve", batch_id=bid):
+                    # one device read for the whole batch, not B scalar reads
+                    tok_host = tok.cpu().numpy()
+            if traced:
+                # per-step wall time feeds the straggler detector, whose
+                # summary only the traced metrics snapshot reads
+                self.straggler.record(time.perf_counter() - ts)
             for i in range(B):
                 outs[i].append(int(tok_host[i, 0]))
         ms_per_tok = (time.perf_counter() - t0) * 1e3 / handoff.max_new
-        if tracer.enabled:
+        if traced:
             m = tracer.metrics
             m.add("serve.requests", B)
             m.add("serve.decode_steps", handoff.max_new)
@@ -244,6 +272,7 @@ class PrefillHandoff:
     plen: int                    # padded prompt length (step offset base)
     max_new: int
     prefill_ms: float
+    batch_id: int = 0            # the engine's id for this batch's spans
 
 
 def make_requests(cfg, n: int, prompt: int, gen: int,

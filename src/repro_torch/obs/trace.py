@@ -1,9 +1,12 @@
 """Tracer: spans, instant events, async flows, and counter samples.
 
 The port's copy of the reference's ``repro/obs/trace.py``, unchanged but
-for its import, so ``repro_torch`` imports nothing from ``repro``. The
-docstrings below describe the reference's layers, which the port gains
-slice by slice.
+for its import, so ``repro_torch`` imports nothing from ``repro``, and for
+the profiler annotation: on the wall clock, while a ``torch.profiler``
+records, ``Tracer.span`` also opens a ``record_function`` range of the
+span's name, so the program's spans land in the profiler's trace on its
+clock. The docstrings below describe the reference's layers, which the
+port gains slice by slice.
 
 The event half of ``repro.obs`` (``metrics.py`` is the aggregate half).
 One shared vocabulary for every layer that moves bytes or makes a
@@ -36,6 +39,7 @@ to the process name and merges ``tags`` into every event's args (how
 from __future__ import annotations
 
 import contextlib
+import sys
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -124,12 +128,21 @@ class Tracer:
     @contextlib.contextmanager
     def span(self, name: str, *, track: tuple = DEFAULT_TRACK,
              cat: str = "", **args):
-        """Wall-clock (or injected-clock) B/E span around a code block."""
+        """Wall-clock (or injected-clock) B/E span around a code block.
+
+        On the wall clock, while a ``torch.profiler`` records, the span
+        also opens a ``record_function`` range of its name: a
+        ``user_annotation`` on the profiler's clock. Spans on an injected
+        clock (sim time) open none."""
+        rng = (_profiler_range(name) if self.clock is time.perf_counter
+               else None)
         self.begin(name, track=track, cat=cat, **args)
         try:
             yield self
         finally:
             self.end(name, track=track, cat=cat)
+            if rng is not None:
+                rng.__exit__(None, None, None)
 
     # -- views ---------------------------------------------------------------
     def scoped(self, prefix: Optional[str] = None, **tags) -> "Tracer":
@@ -142,6 +155,18 @@ class Tracer:
 
     def tagged(self, **tags) -> "Tracer":
         return self.scoped(None, **tags)
+
+
+def _profiler_range(name: str):
+    """An entered ``record_function(name)`` while a torch profiler records
+    in this process, else None. torch is looked up, not imported: where it
+    is not loaded, no profiler can be on."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    rng = torch.autograd.profiler.record_function(name)
+    rng.__enter__()
+    return rng
 
 
 class _ScopedTracer(Tracer):

@@ -55,14 +55,62 @@ def test_tokens_match_reference(engines):
         assert got.tokens == want.tokens, got.rid
 
 
+# the port's split of the reference's serve.prefill and serve.decode_step
+SPLIT = ("offload.fetch", "model.prefill", "model.decode", "serve.readback")
+
+
+def _shape(tracer, drop=SPLIT):
+    return [(e.kind, e.name, e.track) for e in tracer.events
+            if e.name not in drop]
+
+
+def _engine_events(n_requests, offload):
+    """(kind, name) of every event one served batch emits, in order: the
+    split's spans nested in their parents."""
+    def spans(parent, body):
+        fetch = [("B", "offload.fetch"), ("E", "offload.fetch")] \
+            if offload else []
+        return [("B", parent), *fetch, ("B", body), ("E", body),
+                ("B", "serve.readback"), ("E", "serve.readback"),
+                ("E", parent)]
+    out = [("i", "serve.admit")] * n_requests
+    out += spans("serve.prefill", "model.prefill")
+    for _ in range(MAX_NEW):
+        out += spans("serve.decode_step", "model.decode")
+    return out
+
+
+def _check_split(engine, offload):
+    """Every event of the port's one served batch, exactly: the order
+    (which gives the nesting), one track, one batch id on every span, the
+    step on each decode step's children, the tree's bytes on each
+    fetch."""
+    events = list(engine.tracer.events)
+    assert [(e.kind, e.name) for e in events] == \
+        _engine_events(len(PROMPT_LENS), offload)
+    assert {e.track for e in events} == {("serving", "engine")}
+    begins = [e for e in events if e.kind == "B"]
+    assert {e.args["batch_id"] for e in begins} == {1}
+    step = -1
+    for e in begins:
+        if e.name == "serve.decode_step":
+            step = e.args["step"]
+        elif e.name == "model.decode":
+            assert e.args == {"batch_id": 1, "step": step}
+        elif e.name == "offload.fetch":
+            assert e.args == {"batch_id": 1, "bytes": sum(
+                x.numel() * x.element_size()
+                for x in _leaves(engine.params_home))}
+        elif e.name in SPLIT:
+            assert e.args == {"batch_id": 1}
+    assert step == MAX_NEW - 1
+    assert all(a.ts <= b.ts for a, b in zip(events, events[1:]))
+
+
 def test_spans_and_metrics_match_reference(engines):
     ref, port, _, _ = engines
-
-    def shape(tracer):
-        return [(e.kind, e.name, e.track) for e in tracer.events]
-    assert shape(port.tracer) == shape(ref.tracer)
-    names = {e.name for e in port.tracer.events}
-    assert {"serve.prefill", "serve.decode_step"} <= names
+    assert _shape(port.tracer) == _shape(ref.tracer)
+    _check_split(port, offload=False)
     got, want = port.tracer.metrics.to_json(), ref.tracer.metrics.to_json()
     assert got["counters"] == want["counters"]
     assert got["gauges"].keys() == want["gauges"].keys()
@@ -136,10 +184,8 @@ def test_offloaded_and_hbm_tokens_equal_in_port(engines, offloaded):
 
 def test_offloaded_spans_and_slo_counts_match_reference(offloaded):
     ref, port, _, _ = offloaded
-
-    def shape(tracer):
-        return [(e.kind, e.name, e.track) for e in tracer.events]
-    assert shape(port.tracer) == shape(ref.tracer)
+    assert _shape(port.tracer) == _shape(ref.tracer)
+    _check_split(port, offload=True)
     got, want = port.slo.report()["serve"], ref.slo.report()["serve"]
     for k in ("count", "violations", "alerts", "slo_s"):
         assert got[k] == want[k], k
@@ -176,6 +222,96 @@ def test_offloaded_engine_fetches_the_tree_on_every_call(monkeypatch,
 def _leaves(tree):
     from repro_torch.models.params import tree_flatten
     return [x for _, x in tree_flatten(tree)]
+
+
+# ---------------------------------------------------------------------------
+# The program's spans on the profiler's clock
+# ---------------------------------------------------------------------------
+
+ENGINE_SPANS = ("serve.prefill", "serve.decode_step") + SPLIT
+
+
+@pytest.fixture
+def small_engine():
+    """An offloaded engine (so every span of the split occurs) with the
+    default NULL_TRACER."""
+    return serve.ServeEngine(get_config("yi-9b").reduced(dtype="float32"),
+                             device="cpu", offload_weights=True)
+
+
+def _serve_small(engine):
+    return engine.serve([serve.Request(i, p, 2)
+                         for i, p in enumerate(_prompts())])
+
+
+def _profiled(fn, tmp_path):
+    """The names of the user annotations in a CPU profile of ``fn()``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    path = tmp_path / "profile.json"
+    prof.export_chrome_trace(str(path))
+    return [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+            if e.get("cat") == "user_annotation"]
+
+
+def test_tracing_off_emits_no_event_opens_no_range_counts_nothing(
+        small_engine, tmp_path, monkeypatch):
+    """With NULL_TRACER the engine's spans are the no-op context: no
+    event, no profiler range, no straggler sample and no byte count (the
+    fetch's bytes were counted once, when the engine went offloaded)."""
+    counted = []
+    record = serve.OffloadStats.record
+    monkeypatch.setattr(serve.OffloadStats, "record",
+                        lambda self, *a: counted.append(a) or
+                        record(self, *a))
+    assert small_engine.tracer is serve.NULL_TRACER
+    names = _profiled(lambda: _serve_small(small_engine), tmp_path)
+    assert not set(names) & set(ENGINE_SPANS)
+    assert small_engine.tracer.events == ()
+    assert small_engine.straggler.times == []
+    assert counted == []
+
+
+def test_spans_land_in_the_profiler_trace_as_annotations(small_engine,
+                                                         tmp_path):
+    from collections import Counter
+    small_engine.tracer = Tracer()
+    names = _profiled(lambda: _serve_small(small_engine), tmp_path)
+    begun = Counter(e.name for e in small_engine.tracer.events
+                    if e.kind == "B")
+    assert Counter(n for n in names if n in ENGINE_SPANS) == begun
+    assert begun["model.decode"] == begun["serve.decode_step"] == 2
+    assert begun["serve.readback"] == begun["offload.fetch"] == 3
+    assert len(small_engine.straggler.times) == 2
+
+
+def test_spans_open_no_range_with_the_profiler_off(small_engine,
+                                                   monkeypatch):
+    opened = []
+    rf = torch.autograd.profiler.record_function
+    monkeypatch.setattr(torch.autograd.profiler, "record_function",
+                        lambda name, *a: opened.append(name) or rf(name, *a))
+    small_engine.tracer = Tracer()
+    _serve_small(small_engine)
+    assert opened == []
+    assert {e.name for e in small_engine.tracer.events} >= set(ENGINE_SPANS)
+
+
+@pytest.mark.parametrize("clock, annotated", [(None, True),
+                                              (lambda: 0.0, False)])
+def test_only_a_wall_clock_tracer_annotates_the_profile(clock, annotated,
+                                                        tmp_path):
+    """A span on an injected clock (a simulator's sim time) opens no
+    profiler range; one on the wall clock does."""
+    tracer = Tracer(clock=clock)
+
+    def step():
+        with tracer.span("sim.step", track=("sim", "steps")):
+            torch.ones(4).add_(1)
+    names = _profiled(step, tmp_path)
+    assert names.count("sim.step") == int(annotated)
+    assert [e.kind for e in tracer.events] == ["B", "E"]
 
 
 @pytest.mark.parametrize("order", [(0, 1, 2, 3, 4), (0, 2, 1, 3, 4),
