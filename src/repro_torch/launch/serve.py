@@ -13,11 +13,17 @@ through the hand-written flash attention kernel by default
 Unlike the reference's, ``--reduced`` is off by default: the command runs
 the architecture at its full width.
 
+With the weights resident on a CUDA device, the decode role captures a
+batch shape's decode step once as a CUDA graph and replays it every step
+(``DecodeGraph``; where ``decode_graph_engages``), so the host launches
+one graph, not the step's few thousand kernels.
+
 ``--offload-weights`` keeps the weights in pinned host memory and fetches
 the whole tree to the device on every prefill and decode call, the
 paper's synchronous offload mode (§6.1.5), whose step time the host link
-sets. ``--trace-out``, ``--recorder-out``, ``--openmetrics-out`` and
-``--metrics-listen`` write or serve what the run observed:
+sets; its decode runs eagerly. ``--trace-out``, ``--recorder-out``,
+``--openmetrics-out`` and ``--metrics-listen`` write or serve what the
+run observed:
 
   python -m repro_torch.launch.serve --reduced --device cpu \
       --offload-weights --trace-out t.json
@@ -70,6 +76,8 @@ from repro_torch.config.base import ParallelConfig, get_config
 from repro_torch.core.offload import OffloadStats, fetch_to_device, put_tree
 from repro_torch.models.context import resolve_device
 from repro_torch.models.model import Model
+from repro_torch.models.params import tree_flatten, tree_map
+from repro_torch.models.transformer import segment_plan
 from repro_torch.obs import (NULL_TRACER, BandwidthLedger, FlightRecorder,
                              Tracer, openmetrics_text, serve_openmetrics,
                              write_chrome_trace, write_openmetrics)
@@ -99,6 +107,87 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def decode_graph_engages(cfg, device, offload_weights: bool,
+                         mesh=None) -> bool:
+    """Whether the decode role replays a captured CUDA graph: on a CUDA
+    device, with the weights resident (an offloaded engine fetches a tree
+    at new addresses every call), off a mesh, and where every segment is
+    GQA attention blocks (dense or MoE, windowed or not, M-RoPE included),
+    whose step reads its position on the device only. MLA, Mamba2, xLSTM
+    and whisper decode eagerly."""
+    if (torch.device(device).type != "cuda" or offload_weights
+            or mesh is not None or cfg.encoder_decoder
+            or cfg.attn_type == "mla"):
+        return False
+    return all(seg.kind in ("attn", "gemma") for seg in segment_plan(cfg))
+
+
+def graph_key(cache: dict, tok: torch.Tensor) -> tuple:
+    """(batch, cache length): the shape a decode graph is captured at (the
+    K/V leaves are (..., B, S or window, Hkv, dh))."""
+    return tok.shape[0], max(leaf.shape[-3] for _, leaf in tree_flatten(cache))
+
+
+class DecodeGraph:
+    """One decode step at one ``graph_key``, captured as a CUDA graph, and
+    the static buffers it reads and writes: the input token (B, 1), the
+    position (1,), a cache tree at the decode shapes (the engine's copy,
+    not the handoff's) and the step's logits. The graph holds the argmax
+    and its write over the input token, and advances the position, so a
+    replay leaves the next step's input in place. ``step`` (the model's
+    decode as it stands at capture) and ``params`` (the resident weights)
+    are baked in: ``serves`` tells whether they are still the engine's."""
+
+    WARMUP = 3          # eager steps on a side stream before the capture
+
+    def __init__(self, step, params: dict, cache: dict, tok: torch.Tensor,
+                 pos: int):
+        self.key = graph_key(cache, tok)
+        self.step = step
+        self.weights = [leaf for _, leaf in tree_flatten(params)]
+        self.cache = tree_map(torch.empty_like, cache)
+        self.tok = torch.empty_like(tok)
+        self.pos = torch.empty(1, dtype=torch.int64, device=tok.device)
+        self.load(cache, tok, pos)
+
+        def body():
+            logits, _ = step(params, self.cache, self.tok, self.pos)
+            self.tok.copy_(torch.argmax(logits, dim=-1))
+            self.pos.add_(1)
+            return logits
+
+        here = torch.cuda.current_stream(tok.device)
+        side = torch.cuda.Stream(tok.device)
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP):   # at ``pos``: inside the cache
+                self.pos.fill_(pos)
+                body()
+        here.wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.logits = body()
+
+    def serves(self, step, params: dict, cache: dict,
+               tok: torch.Tensor) -> bool:
+        leaves = [leaf for _, leaf in tree_flatten(params)]
+        return (self.key == graph_key(cache, tok) and self.step == step
+                and len(leaves) == len(self.weights)
+                and all(a is b for a, b in zip(leaves, self.weights)))
+
+    def load(self, cache: dict, tok: torch.Tensor, pos: int) -> None:
+        """A batch's handoff into the static buffers (device copies)."""
+        tree_map(lambda mine, theirs: mine.copy_(theirs), self.cache, cache)
+        self.tok.copy_(tok)
+        self.pos.fill_(pos)
+
+    def replay(self) -> torch.Tensor:
+        """One step; returns the next token, the static input buffer that
+        the next replay overwrites."""
+        self.graph.replay()
+        return self.tok
+
+
 class ServeEngine:
     def __init__(self, cfg,
                  parallel: ParallelConfig = ParallelConfig(
@@ -121,7 +210,12 @@ class ServeEngine:
         work and the argmax) and ``serve.readback`` (the host waiting for
         the device). Every span of a batch carries its ``batch_id``. While
         the tracer is on, a ``StragglerStats`` is fed one sample per decode
-        step, and its summary lands in the metrics snapshot. ``slo``
+        step, and its summary lands in the metrics snapshot. Where the
+        decode role replays a graph (``decode_graph_engages``),
+        ``model.decode`` carries ``graph=1`` (else 0), a capture is a
+        ``serve.graph_capture`` span (``B``, ``cache_len``), and the
+        snapshot counts ``serve.decode_graph.captures`` and
+        ``serve.decode_graph.replays``. ``slo``
         optionally attaches an ``obs.SLOMonitor``: one latency observation
         per finished request (class "serve").
 
@@ -152,6 +246,9 @@ class ServeEngine:
             stats = OffloadStats()
             stats.record(self.params_home, "to_device")
             self.fetch_bytes = stats.bytes_to_device
+        self.graphs = decode_graph_engages(cfg, self.device, offload_weights,
+                                           self.model.mctx.mesh)
+        self._graph: Optional[DecodeGraph] = None
 
     @property
     def device(self) -> torch.device:
@@ -171,6 +268,26 @@ class ServeEngine:
                                   bytes=self.fetch_bytes):
                 return fetch_to_device(self.params_home, self.device)
         return self.params_home
+
+    def _decode_graph(self, handoff: "PrefillHandoff") -> DecodeGraph:
+        """The graph for this batch, loaded with its handoff. It is
+        captured on first use; a new key, new weights or a new decode
+        callable drop the old graph and its buffers before capturing
+        again, so at most one is held."""
+        step, params = self.model.decode, self.params_home
+        cache, tok, pos = handoff.cache, handoff.tok, handoff.plen
+        g = self._graph
+        if g is None or not g.serves(step, params, cache, tok):
+            self._graph = g = None
+            B, S = graph_key(cache, tok)
+            with self.tracer.span("serve.graph_capture", track=ENGINE_TRACK,
+                                  cat="serve", batch_id=handoff.batch_id,
+                                  B=B, cache_len=S):
+                g = self._graph = DecodeGraph(step, params, cache, tok, pos)
+            if self.tracer.enabled:
+                self.tracer.metrics.add("serve.decode_graph.captures", 1)
+        g.load(cache, tok, pos)      # the capture's warm-up stepped the copy
+        return g
 
     @torch.inference_mode()
     def prefill(self, requests: list[Request]) -> "PrefillHandoff":
@@ -210,8 +327,9 @@ class ServeEngine:
 
     @torch.inference_mode()
     def decode(self, handoff: "PrefillHandoff") -> list[Result]:
-        """The decode role: step the handed-off KV cache to completion
-        (the cache is updated in place)."""
+        """The decode role: step the handed-off KV cache to completion.
+        Eagerly the handoff's cache is updated in place; a graph replay
+        steps the engine's copy of it and leaves the handoff as it was."""
         requests = handoff.requests
         B = len(requests)
         tracer = self.tracer
@@ -219,17 +337,22 @@ class ServeEngine:
         outs = [[] for _ in requests]
         traced = tracer.enabled
         t0 = time.perf_counter()
+        graph = self._decode_graph(handoff) if self.graphs else None
         for s in range(handoff.max_new):
             ts = time.perf_counter()
             with tracer.span("serve.decode_step", track=ENGINE_TRACK,
                              cat="serve", step=s, batch=B, batch_id=bid):
-                params = self._params(bid)
+                params = self._params(bid) if graph is None else None
                 with tracer.span("model.decode", track=ENGINE_TRACK,
-                                 cat="serve", batch_id=bid, step=s):
-                    logits, cache = self.model.decode(params, cache, tok,
-                                                      handoff.plen + s)
-                    del params   # dropped before the next step's fetch
-                    tok = torch.argmax(logits, dim=-1)
+                                 cat="serve", batch_id=bid, step=s,
+                                 graph=int(graph is not None)):
+                    if graph is not None:
+                        tok = graph.replay()
+                    else:
+                        logits, cache = self.model.decode(
+                            params, cache, tok, handoff.plen + s)
+                        del params   # dropped before the next step's fetch
+                        tok = torch.argmax(logits, dim=-1)
                 with tracer.span("serve.readback", track=ENGINE_TRACK,
                                  cat="serve", batch_id=bid):
                     # one device read for the whole batch, not B scalar reads
@@ -246,6 +369,8 @@ class ServeEngine:
             m.add("serve.requests", B)
             m.add("serve.decode_steps", handoff.max_new)
             m.add("serve.tokens_generated", B * handoff.max_new)
+            if graph is not None:
+                m.add("serve.decode_graph.replays", handoff.max_new)
             m.set("serve.prefill_ms", handoff.prefill_ms)
             m.set("serve.decode_ms_per_tok", ms_per_tok)
             for k, v in self.straggler.summary().items():
@@ -267,7 +392,8 @@ class ServeEngine:
 class PrefillHandoff:
     """What the prefill role produces and the decode role consumes."""
     requests: list               # the Requests this batch covers
-    cache: dict                  # model KV cache (decode updates it in place)
+    cache: dict                  # model KV cache: an eager decode steps it in
+    #                              place, a graph decode steps a copy
     tok: torch.Tensor            # (B, 1) first sampled tokens
     plen: int                    # padded prompt length (step offset base)
     max_new: int

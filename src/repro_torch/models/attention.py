@@ -192,20 +192,22 @@ def attn_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
     return _out_proj(ctx, p["w_o"]), {"k": k, "v": v}
 
 
-def attn_decode(p: dict, x: torch.Tensor, pos: int, cache: dict,
+def attn_decode(p: dict, x: torch.Tensor, pos: torch.Tensor, cache: dict,
                 cfg: ModelConfig, *, window: int = 0, use_rope: bool = True
                 ) -> tuple[torch.Tensor, dict]:
     """One decode step. x: (B, 1, d). cache: {k,v: (B, S_or_W, Hkv, dh)}.
 
-    ``pos`` is the current absolute position: the rope position (every
-    M-RoPE axis at ``pos``, as in the reference) and the cache slot. The
+    ``pos`` is the current absolute position, a one-element int64 tensor
+    on x's device: the rope position (every M-RoPE axis at ``pos``, as in
+    the reference) and the cache slot. The step reads it only on the
+    device, so a CUDA graph captured around it serves every position. The
     new k/v are written into ``cache`` in place (at ``pos``, or ``pos %
     window`` for ring caches) — where the reference returns an updated
     copy — and ``cache`` is returned.
     """
     q, k_new, v_new = _project_qkv(p, x)
     if use_rope:
-        positions = torch.full((x.shape[0], 1), pos, device=x.device)
+        positions = pos.expand(x.shape[0], 1)
         if cfg.mrope:
             positions = positions.expand(3, *positions.shape)
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
@@ -213,8 +215,8 @@ def attn_decode(p: dict, x: torch.Tensor, pos: int, cache: dict,
     k_cache, v_cache = cache["k"], cache["v"]
     S = k_cache.shape[1]
     slot = pos % S if window > 0 else pos
-    k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, slot] = v_new[:, 0].to(v_cache.dtype)
+    k_cache.index_copy_(1, slot, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(1, slot, v_new.to(v_cache.dtype))
     valid = torch.arange(S, device=x.device) <= pos
     if window > 0:
         valid |= pos >= S                # ring: all valid once wrapped

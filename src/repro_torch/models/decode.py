@@ -6,6 +6,13 @@ prefill output feeds decode directly. A decode step writes the new K/V
 (or latents) into the cache in place and copies each recurrent block's new
 state over its old one, so the cache it is given is the cache it returns.
 
+The position of the decoded token is a Python int or a one-element int64
+tensor on the device. GQA attention (``attn_decode``) reads it as the
+tensor, made once a step from an int, so a step of attention blocks alone
+reads no position on the host and can be captured as a CUDA graph and
+replayed at every position (``launch/serve.py``); MLA and the mesh path
+take the int.
+
 Whisper (encoder-decoder): ``prefill`` of ``{"frames"}`` runs the encoder
 and returns its output (not logits) with a zeroed self cache and each
 decoder layer's cross K/V of the encoder's output; ``decode_step`` then
@@ -67,7 +74,10 @@ def cache_specs(cfg: ModelConfig, mctx: MCtx, B: int, S: int) -> dict:
 # --------------------------------------------------------------------------
 
 
-def _attn_block_dec(p, x, pos, cache, cfg, mctx, *, window, moe=False):
+def _attn_block_dec(p, x, pos, pos_t, cache, cfg, mctx, *, window,
+                    moe=False):
+    """``pos`` as given to the step (MLA and the mesh path read it),
+    ``pos_t`` the tensor ``attn_decode`` reads."""
     if mctx.mesh is not None:
         return tp.attn_block_dec(p, x, pos, cache, cfg, mctx, window=window,
                                  moe=moe)
@@ -75,7 +85,7 @@ def _attn_block_dec(p, x, pos, cache, cfg, mctx, *, window, moe=False):
     if cfg.attn_type == "mla":
         a, _ = mla_decode(p["attn"], h, pos, cache, cfg)
     else:
-        a, _ = attn_decode(p["attn"], h, pos, cache, cfg, window=window)
+        a, _ = attn_decode(p["attn"], h, pos_t, cache, cfg, window=window)
     x = x + a
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if moe:
@@ -108,21 +118,21 @@ _slstm_block_dec = _recurrent_dec(slstm_decode, "cell", "slstm")
 # --------------------------------------------------------------------------
 
 
-def seg_decode(p, cache, x, pos, cfg: ModelConfig, mctx: MCtx, seg: Seg,
-               shared_attn=None):
+def seg_decode(p, cache, x, pos, pos_t, cfg: ModelConfig, mctx: MCtx,
+               seg: Seg, shared_attn=None):
     """One token through a segment; its stacked cache is updated in
-    place."""
+    place. ``pos``/``pos_t``: as ``_attn_block_dec`` takes them."""
     for lp, lc in zip(layer_views(p, seg.n), layer_views(cache, seg.n)):
         if seg.kind == "attn":
-            x = _attn_block_dec(lp, x, pos, lc, cfg, mctx,
+            x = _attn_block_dec(lp, x, pos, pos_t, lc, cfg, mctx,
                                 window=seg.window, moe=seg.moe)
         elif seg.kind == "gemma":
             for ll, cl in zip(layer_views(lp["local"], seg.sub),
                               layer_views(lc["local"], seg.sub)):
-                x = _attn_block_dec(ll, x, pos, cl, cfg, mctx,
+                x = _attn_block_dec(ll, x, pos, pos_t, cl, cfg, mctx,
                                     window=seg.window)
-            x = _attn_block_dec(lp["global"], x, pos, lc["global"], cfg,
-                                mctx, window=0)
+            x = _attn_block_dec(lp["global"], x, pos, pos_t, lc["global"],
+                                cfg, mctx, window=0)
         elif seg.kind == "zamba":
             for ll, cl in zip(layer_views(lp["mamba"], seg.sub),
                               layer_views(lc["mamba"], seg.sub)):
@@ -133,7 +143,7 @@ def seg_decode(p, cache, x, pos, cfg: ModelConfig, mctx: MCtx, seg: Seg,
                                       window=0)
                 continue
             h = rmsnorm(x, sa["ln1"], cfg.norm_eps)
-            a, _ = attn_decode(sa["attn"], h, pos, lc["attn"], cfg)
+            a, _ = attn_decode(sa["attn"], h, pos_t, lc["attn"], cfg)
             x = x + a
             x = x + mlp_apply(sa["mlp"], rmsnorm(x, sa["ln2"], cfg.norm_eps))
         elif seg.kind == "mamba":
@@ -259,18 +269,17 @@ def _whisper_prefill(params, cfg: ModelConfig, mctx: MCtx, batch: dict,
 
 
 def _whisper_decode(params, cfg: ModelConfig, cache: dict, x: torch.Tensor,
-                    pos: int) -> torch.Tensor:
+                    pos_t: torch.Tensor) -> torch.Tensor:
     """One token through whisper's decoder: sinusoidal position, causal
     self-attention against the self cache (written in place), then
     cross-attention to the cached encoder K/V and the ungated MLP."""
     dtype = x.dtype
-    x = x + sinusoidal_pos_emb(torch.full((1,), pos, device=x.device),
-                               cfg.d_model).to(dtype)
+    x = x + sinusoidal_pos_emb(pos_t, cfg.d_model).to(dtype)
     dec = cache["decoder"]
     for lp, lc in zip(layer_views(params["decoder"], cfg.num_layers),
                       layer_views(dec, cfg.num_layers)):
         h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        a, _ = attn_decode(lp["attn"], h, pos, lc["self"], cfg,
+        a, _ = attn_decode(lp["attn"], h, pos_t, lc["self"], cfg,
                            use_rope=False)
         x = x + a
         hx = rmsnorm(x, lp["ln_x"], cfg.norm_eps)
@@ -281,21 +290,26 @@ def _whisper_decode(params, cfg: ModelConfig, cache: dict, x: torch.Tensor,
 
 
 def decode_step(params, cfg: ModelConfig, mctx: MCtx, cache: dict,
-                tokens: torch.Tensor, pos: int) -> tuple[torch.Tensor, dict]:
-    """One token step. tokens: (B, 1) int; pos: position of the token.
+                tokens: torch.Tensor, pos) -> tuple[torch.Tensor, dict]:
+    """One token step. tokens: (B, 1) int; pos: position of the token, an
+    int or a one-element int64 tensor on the tokens' device (the int
+    everywhere on a mesh, and wherever MLA decodes).
 
     ``cache`` is updated in place and returned."""
     if mctx.mesh is not None:
         return _decode_step_mesh(params, cfg, mctx, cache, tokens, pos)
+    pos_t = (pos if isinstance(pos, torch.Tensor) else
+             torch.full((1,), pos, dtype=torch.int64, device=tokens.device))
     x = embed_tokens(params["embed"], tokens, torch_dtype(cfg.dtype))
     if cfg.encoder_decoder:
-        x = _whisper_decode(params, cfg, cache, x, pos)
+        x = _whisper_decode(params, cfg, cache, x, pos_t)
     else:
         shared = params.get("shared_attn")
         for seg in segment_plan(cfg):
             x, cache[seg.name] = seg_decode(params[seg.name],
-                                            cache[seg.name], x, pos, cfg,
-                                            mctx, seg, shared_attn=shared)
+                                            cache[seg.name], x, pos, pos_t,
+                                            cfg, mctx, seg,
+                                            shared_attn=shared)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg.tie_embeddings)
     return logits, cache
@@ -316,8 +330,9 @@ def _decode_step_mesh(params, cfg: ModelConfig, mctx: MCtx, cache: dict,
         shared = params.get("shared_attn")
         for seg in segment_plan(cfg):
             x, cache[seg.name] = seg_decode(params[seg.name],
-                                            cache[seg.name], x, pos, cfg,
-                                            mctx, seg, shared_attn=shared)
+                                            cache[seg.name], x, pos, None,
+                                            cfg, mctx, seg,
+                                            shared_attn=shared)
     x = tp.rms_norm(mctx, x, params["final_norm"], cfg.norm_eps)
     logits = tp.unembed(mctx, params["embed"], x, cfg.tie_embeddings)
     logits = mctx.constrain(logits, ("act_batch", None, "act_vocab"))

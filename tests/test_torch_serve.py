@@ -83,7 +83,8 @@ def _engine_events(n_requests, offload):
 def _check_split(engine, offload):
     """Every event of the port's one served batch, exactly: the order
     (which gives the nesting), one track, one batch id on every span, the
-    step on each decode step's children, the tree's bytes on each
+    step on each decode step's children (and on ``model.decode`` whether
+    it replayed a graph: never on the CPU), the tree's bytes on each
     fetch."""
     events = list(engine.tracer.events)
     assert [(e.kind, e.name) for e in events] == \
@@ -96,7 +97,7 @@ def _check_split(engine, offload):
         if e.name == "serve.decode_step":
             step = e.args["step"]
         elif e.name == "model.decode":
-            assert e.args == {"batch_id": 1, "step": step}
+            assert e.args == {"batch_id": 1, "step": step, "graph": 0}
         elif e.name == "offload.fetch":
             assert e.args == {"batch_id": 1, "bytes": sum(
                 x.numel() * x.element_size()
