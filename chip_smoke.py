@@ -415,14 +415,14 @@ OVERLAP_ROWS = 16384
 # activations. gemma3's prompts are twice its 1024-token window, so
 # the window mask bites in K1 and the ring caches have wrapped when decode
 # starts; mixtral keeps 8 of its 56 layers (full width, 40.87 GB); zamba2
-# and xlstm run no K1, as in the reference. Mixtral's decode is not held
-# against a full forward: at the forward's 4 x 1040 tokens an expert drops
-# (token, slot) pairs for want of capacity that a 4-token decode step
-# keeps (the reference's capacity rule, by design). zamba2's decode is
-# held to the fp32 forward only: its bf16 forward differs from itself by
-# 2.8e-2 (relative L2) when each request runs alone instead of in the batch
-# (81 random layers amplify the GEMMs' other summation order), so against
-# the bf16 forward a 3e-2 bound cannot tell a fault from rounding.
+# and xlstm run no K1, as in the reference. The eager forward runs the
+# serving roles' dropless MoE layers, as prefill and decode do. Mixtral's
+# decode steps are not held against the forward (none held). zamba2's
+# decode is held to the fp32 forward only: its bf16 forward differs from
+# itself by 2.8e-2 (relative L2) when each request runs alone instead of
+# in the batch (81 random layers amplify the GEMMs' other summation order),
+# so against the bf16 forward a 3e-2 bound cannot tell a fault from
+# rounding.
 #
 # qwen2-vl-72b keeps 28 of its 80 layers at full width (49.2 GB of layers
 # and 4.98 GB of embeddings, room left for the checks' eager forward) and is
@@ -430,7 +430,7 @@ OVERLAP_ROWS = 16384
 # equal); its M-RoPE grid batch is MROPE_GRID below. deepseek-v3 keeps its 3
 # dense layers and 2 of its 58 MoE layers (53 GB); it runs no K1 (MLA takes
 # chunked attention, as in the reference) and its MoE decode is not held
-# against a forward, for mixtral's reason: its MLA decode is held instead,
+# against a forward either: its MLA decode is held instead,
 # on the dense layers alone (MLA_DENSE_STEPS).
 MODELS = [("gemma3-27b", None, 2048, 32, 8, 0, (62, 52)),
           ("mixtral-8x22b", 8, 1024, 16, 0, 0, (8, 8)),
@@ -3076,6 +3076,7 @@ def decode_vs_forward(cfg, params, batch, steps: int, fp32_steps: int) -> dict:
     shapes, so other sums). Relative L2s of the last position's logits."""
     import torch
     from repro_torch.config.base import ParallelConfig
+    from repro_torch.models import moe
     from repro_torch.models.layers import unembed
     from repro_torch.models.model import Model
     from repro_torch.models.transformer import forward_hidden
@@ -3085,7 +3086,7 @@ def decode_vs_forward(cfg, params, batch, steps: int, fp32_steps: int) -> dict:
     for dtype in ("bfloat16", "float32"):
         c = dataclasses.replace(cfg, dtype=dtype)
         eager[dtype] = c, Model.create(
-            c, ParallelConfig(attention_kernel="eager")).mctx
+            c, ParallelConfig(attention_kernel="eager")).serve_mctx
     plen = batch.shape[1]
 
     def eager_last(tokens, dtype="bfloat16"):
@@ -3097,7 +3098,8 @@ def decode_vs_forward(cfg, params, batch, steps: int, fp32_steps: int) -> dict:
         kern.mctx.stats = {}
         logits_k, cache = kern.prefill(params, {"tokens": batch},
                                        plen + steps)
-        dropped = int(kern.mctx.stats.get("moe_dropped", 0))
+        dropped = (moe.read_counts(kern.mctx.stats) or {}).get(
+            "dropped_pairs", 0)
         logits_e = eager_last(batch)
         finite = bool(torch.isfinite(logits_k).all()
                       and torch.isfinite(logits_e).all())
@@ -3362,7 +3364,10 @@ def mesh_rerun(cfg, params, prompt, warm, generate, profile,
     mesh model where given. Checks: every leaf a DTensor over the plain
     leaf's storage, a second plain run equal to the first bit for bit
     (else the mesh's equality below would hold by chance), tokens equal,
-    the held tensors within LOGITS_REL_L2, exactly ``k1`` K1 launches."""
+    the held tensors within LOGITS_REL_L2, exactly ``k1`` K1 launches.
+    The mesh bodies keep the capacity MoE layer, so the plain path here
+    serves with it too (``serve_mctx`` is the model's own context), not
+    with the dropless layer of plain serving."""
     import numpy as np
     import torch
     from torch.distributed.tensor import DTensor
@@ -3371,9 +3376,14 @@ def mesh_rerun(cfg, params, prompt, warm, generate, profile,
     from repro_torch.launch.mesh import local_process_group, make_host_mesh
     from repro_torch.models.model import Model
     from repro_torch.models.params import tree_flatten
+
+    class CapacityModel(Model):
+        @property
+        def serve_mctx(self):
+            return self.mctx
     t0 = time.perf_counter()
     parallel = ParallelConfig(attention_kernel="kernel")
-    plain = Model.create(cfg, parallel)
+    plain = CapacityModel.create(cfg, parallel)
     with local_process_group("cuda"):
         model = Model.create(cfg, parallel, mesh=make_host_mesh())
         model.set_params(params)

@@ -46,6 +46,9 @@ class MoEConfig:
     top_k: int = 2
     num_shared_experts: int = 0
     d_ff_expert: int = 0          # per-expert FFN width
+    # slots an expert has per T * k / E routed pairs in the training step
+    # and the mesh bodies, which drop the pairs that overflow; serving
+    # (Model.prefill / Model.decode off a mesh) is dropless and ignores it
     capacity_factor: float = 1.25
     router_aux_loss: float = 0.001
     first_dense_layers: int = 0   # deepseek: first k layers are dense

@@ -74,6 +74,7 @@ import torch
 
 from repro_torch.config.base import ParallelConfig, get_config
 from repro_torch.core.offload import OffloadStats, fetch_to_device, put_tree
+from repro_torch.models import moe
 from repro_torch.models.context import resolve_device
 from repro_torch.models.model import Model
 from repro_torch.models.params import tree_flatten, tree_map
@@ -215,7 +216,13 @@ class ServeEngine:
         ``model.decode`` carries ``graph=1`` (else 0), a capture is a
         ``serve.graph_capture`` span (``B``, ``cache_len``), and the
         snapshot counts ``serve.decode_graph.captures`` and
-        ``serve.decode_graph.replays``. ``slo``
+        ``serve.decode_graph.replays``. With MoE layers (dropless in
+        both roles), each ``model.prefill`` / ``model.decode`` span carries
+        ``moe`` = {``routed_pairs``, ``dropped_pairs``,
+        ``expert_load_max``}, read back after the role's own sync, and the
+        snapshot counts ``moe.routed_pairs`` and ``moe.dropped_pairs`` and
+        keeps the largest ``moe.expert_load_max`` (the busiest expert's
+        share of a layer's pairs). ``slo``
         optionally attaches an ``obs.SLOMonitor``: one latency observation
         per finished request (class "serve").
 
@@ -249,6 +256,11 @@ class ServeEngine:
         self.graphs = decode_graph_engages(cfg, self.device, offload_weights,
                                            self.model.mctx.mesh)
         self._graph: Optional[DecodeGraph] = None
+        # what the dropless MoE layers count, on the device (a captured
+        # decode step counts too); read only while a tracer is on
+        self.moe_stats = None
+        if cfg.moe is not None:
+            self.moe_stats = self.model.mctx.stats = {}
 
     @property
     def device(self) -> torch.device:
@@ -268,6 +280,34 @@ class ServeEngine:
                                   bytes=self.fetch_bytes):
                 return fetch_to_device(self.params_home, self.device)
         return self.params_home
+
+    def _moe_args(self) -> dict:
+        """``{"moe": {}}`` for a model span where the tracer is on and the
+        model has MoE layers: the counters are zeroed for the call, and
+        ``_read_moe`` fills the dict after the role's sync. Else ``{}``."""
+        if self.moe_stats is None or not self.tracer.enabled:
+            return {}
+        moe.zero_counts(self.moe_stats)
+        return {"moe": {}}
+
+    def _read_moe(self, args: dict, tokens: int) -> None:
+        """The call's MoE counters (``tokens`` routed through each MoE
+        layer), after the device sync, into ``args["moe"]`` and the
+        snapshot: ``moe.routed_pairs`` and ``moe.dropped_pairs`` add up,
+        ``moe.expert_load_max`` (the busiest expert's share of a layer's
+        pairs) keeps the largest seen."""
+        if "moe" not in args:
+            return
+        c = moe.read_counts(self.moe_stats)
+        share = c["busiest_pairs"] / (tokens * self.cfg.moe.top_k)
+        args["moe"].update(routed_pairs=c["routed_pairs"],
+                           dropped_pairs=c["dropped_pairs"],
+                           expert_load_max=share)
+        m = self.tracer.metrics
+        m.add("moe.routed_pairs", c["routed_pairs"])
+        m.add("moe.dropped_pairs", c["dropped_pairs"])
+        m.set("moe.expert_load_max",
+              max(share, m.gauge("moe.expert_load_max", 0.0)))
 
     def _decode_graph(self, handoff: "PrefillHandoff") -> DecodeGraph:
         """The graph for this batch, loaded with its handoff. It is
@@ -311,8 +351,9 @@ class ServeEngine:
         with tracer.span("serve.prefill", track=ENGINE_TRACK, cat="serve",
                          batch=B, prompt_len=plen, batch_id=bid):
             params = self._params(bid)
+            moe_args = self._moe_args()
             with tracer.span("model.prefill", track=ENGINE_TRACK,
-                             cat="serve", batch_id=bid):
+                             cat="serve", batch_id=bid, **moe_args):
                 batch = {"tokens": torch.from_numpy(toks).to(self.device)}
                 logits, cache = self.model.prefill(params, batch,
                                                    plen + max_new)
@@ -321,6 +362,7 @@ class ServeEngine:
             with tracer.span("serve.readback", track=ENGINE_TRACK,
                              cat="serve", batch_id=bid):
                 _sync(self.device)
+            self._read_moe(moe_args, B * plen)
         prefill_ms = (time.perf_counter() - t0) * 1e3
         return PrefillHandoff(requests, cache, tok, plen, max_new,
                               prefill_ms, bid)
@@ -343,9 +385,10 @@ class ServeEngine:
             with tracer.span("serve.decode_step", track=ENGINE_TRACK,
                              cat="serve", step=s, batch=B, batch_id=bid):
                 params = self._params(bid) if graph is None else None
+                moe_args = self._moe_args()
                 with tracer.span("model.decode", track=ENGINE_TRACK,
                                  cat="serve", batch_id=bid, step=s,
-                                 graph=int(graph is not None)):
+                                 graph=int(graph is not None), **moe_args):
                     if graph is not None:
                         tok = graph.replay()
                     else:
@@ -357,6 +400,7 @@ class ServeEngine:
                                  cat="serve", batch_id=bid):
                     # one device read for the whole batch, not B scalar reads
                     tok_host = tok.cpu().numpy()
+                self._read_moe(moe_args, B)
             if traced:
                 # per-step wall time feeds the straggler detector, whose
                 # summary only the traced metrics snapshot reads

@@ -12,7 +12,10 @@ training step averages compressed gradients, or None; with a mesh that has
 a ``pod`` axis it is that axis's group. ``stats``, where a caller sets it
 to a dict, collects counters a run asks for (``"moe_dropped"``: the
 (token, slot) pairs the MoE layers drop for want of capacity; on a mesh,
-this rank's).
+this rank's; with ``dropless``, ``moe.COUNTS``: the pairs the dropless
+layers route). ``dropless``, which the serving roles (``Model.prefill``,
+``Model.decode``) set, runs the MoE layers off a mesh without capacity:
+no (token, slot) pair is dropped (``models/moe.py``).
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ class MCtx:
     seq_sharded_cache: bool = False     # long-context: KV seq over 'data'
     manual_pod: bool = False            # inside a body manual over 'pod'
     rules: Optional[dict] = None
+    dropless: bool = False              # MoE routes every pair (serving)
 
     def __post_init__(self):
         if self.mesh is None:

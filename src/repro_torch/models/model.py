@@ -12,12 +12,15 @@ With a mesh (``Model.create(..., mesh=...)``) every leaf is a DTensor
 placed by the sharding rules (``param_sharding``): ``init`` draws each
 leaf whole and keeps this rank's shard, ``set_params`` wraps a plain leaf
 around this rank's shard of it (on a one-rank mesh the tensor itself, no
-copy), and caches are DTensors too. ``abstract_params`` and
-``abstract_cache`` are the dry-run's fake trees.
+copy), and caches are DTensors too. ``prefill`` and ``decode``, the
+serving roles, run under ``serve_mctx``: off a mesh their MoE layers are
+dropless (``models/moe.py``); ``loss`` keeps the capacity body.
+``abstract_params`` and ``abstract_cache`` are the dry-run's fake trees.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -132,11 +135,19 @@ class Model(nn.Module):
     def loss(self, params, batch):
         return loss_fn(params, self.cfg, self.mctx, batch)
 
+    @property
+    def serve_mctx(self) -> MCtx:
+        """The serving roles' context: the model's, with dropless MoE
+        layers (the same ``stats`` dict)."""
+        return dataclasses.replace(self.mctx, dropless=True)
+
     def prefill(self, params, batch, max_len: int = 0):
-        return prefill(params, self.cfg, self.mctx, batch, max_len=max_len)
+        return prefill(params, self.cfg, self.serve_mctx, batch,
+                       max_len=max_len)
 
     def decode(self, params, cache, tokens, pos):
-        return decode_step(params, self.cfg, self.mctx, cache, tokens, pos)
+        return decode_step(params, self.cfg, self.serve_mctx, cache, tokens,
+                           pos)
 
     @property
     def num_params(self) -> int:

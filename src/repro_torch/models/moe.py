@@ -1,9 +1,23 @@
-"""Mixture-of-Experts FFN: capacity-based top-k routing with sort-based
-dispatch (no (T, E, C) one-hot is ever built) that drops overflow tokens,
-GShard-style.
+"""Mixture-of-Experts FFN: top-k routing with sort-based dispatch (no
+(T, E, C) one-hot is ever built), in two forms.
 
-Two bodies, as in the reference, picked by ``use_ep`` on a mesh
-(``models/tp.moe_ffn``):
+* **Dropless** (``_dropless``), the serving path: ``Model.prefill`` and
+  ``Model.decode`` set ``MCtx.dropless``, and every (token, slot) pair
+  reaches its expert, as Mixtral and DeepSeek are served. The T * k pairs
+  are sorted by expert (stably) and their rows gathered into one (T * k,
+  d) buffer in expert order; the three projections run as grouped GEMMs
+  over it (``torch._grouped_mm`` on CUDA, a loop over the experts on the
+  CPU), each expert on its own rows between offsets that stay on the
+  device. No capacity and no padded slot: its memory is T * k rows however
+  skewed the routing, its shapes are static and it never reads back to the
+  host, so a decode step that holds it can be captured as a CUDA graph.
+* **Capacity** (``_routed``), the training step's and the mesh bodies':
+  each expert has ``C = ceil(capacity_factor * T * k / E)`` slots, filled
+  in token order, and the pairs that overflow are dropped, GShard-style,
+  as the reference drops them.
+
+The capacity form has two bodies, as in the reference, picked by
+``use_ep`` on a mesh (``models/tp.moe_ffn``):
 
 * **EP** (``_moe_ep_body``): experts sharded over ``(data, model)``; each
   rank routes its share of the tokens and sends each expert's slots to the
@@ -13,19 +27,21 @@ Two bodies, as in the reference, picked by ``use_ep`` on a mesh
   dim sharded over ``model``; dispatch is local, in 8 chunks with a
   capacity per chunk, and the partial outputs are summed over ``model``.
 
-Without a mesh, ``moe_ffn`` is the EP body's arithmetic over a group of
-one, which the reference's one-device mesh runs: route all B * S tokens,
-fill each expert's ``C`` slots in token order, run the experts, add the
-gated outputs back. Which tokens drop is the reference's: a stable argsort
-of the flattened expert ids, ties kept in (token, slot) order.
+Without a mesh and outside serving, ``moe_ffn`` is the EP body's
+arithmetic over a group of one, which the reference's one-device mesh
+runs: route all B * S tokens, fill each expert's ``C`` slots in token
+order, run the experts, add the gated outputs back. Which tokens drop is
+the reference's: a stable argsort of the flattened expert ids, ties kept in
+(token, slot) order.
 
-The combine adds each token's ``k`` gated outputs one after another in
-ascending expert order, the order in which the reference's scatter-add
-(``.at[st].add`` over the sorted pairs) meets them, rounding after each
-add. It is a gather and ``k`` additions, not a scatter-add: on CUDA
-``index_add_`` adds through atomics in whatever order they land, so two
-runs on the same inputs (and a mesh body beside the plain path) differed
-in the last bits of a bf16 sum, which can flip a greedy token.
+Both forms combine alike: each token's ``k`` gated outputs are added one
+after another in ascending expert order, the order in which the
+reference's scatter-add (``.at[st].add`` over the sorted pairs) meets them,
+rounding after each add. It is a gather and ``k`` additions, not a
+scatter-add: on CUDA ``index_add_`` adds through atomics in whatever order
+they land, so two runs on the same inputs (and a mesh body beside the
+plain path) differed in the last bits of a bf16 sum, which can flip a
+greedy token.
 """
 
 from __future__ import annotations
@@ -47,6 +63,13 @@ from repro_torch.models.params import ParamSpec
 # calls of each mesh body since the last reset (the dry-run records which
 # body a cell reached)
 BODY_CALLS = {"ep": 0, "tp": 0}
+
+# the key of the dropless layers' counters in ``MCtx.stats``: an int64 (3,)
+# tensor on the device, kept in place (so a captured decode step updates
+# it on every replay): (token, slot) pairs routed, pairs dropped (0 unless
+# an expert id falls outside every expert's rows), and the most pairs one
+# expert took in one layer, the largest over the layers
+COUNTS = "moe_counts"
 
 
 def _axis_size(mesh, name: str) -> int:
@@ -168,16 +191,103 @@ def _routed(x_tok: torch.Tensor, router_w: torch.Tensor, cfg: ModelConfig,
     buf[rows] = x_tok[st]
     out = experts(buf[:E * C].view(E, C, d)).reshape(E * C, d)
     out = F.pad(out, (0, 0, 0, 1))
-    # back to (token, slot) order, then each token's slots by expert
+    # back to (token, slot) order
     pair_rows = torch.empty_like(rows)
     pair_rows[order] = rows
+    return _combine(out, pair_rows, gates, eids), aux, (~keep).sum()
+
+
+def _combine(out: torch.Tensor, pair_rows: torch.Tensor,
+             gates: torch.Tensor, eids: torch.Tensor) -> torch.Tensor:
+    """(T, d): each token's ``k`` rows of ``out`` (``pair_rows``: the row
+    of each (token, slot) pair, in (token, slot) order) times their gates,
+    added one after another in ascending expert order."""
+    T, k = eids.shape
     by_e = torch.argsort(eids, dim=1)
-    pair_rows = pair_rows.view(T, k).gather(1, by_e)
-    w = gates.gather(1, by_e).to(x_tok.dtype)
-    y = out[pair_rows[:, 0]] * w[:, :1]
+    rows = pair_rows.view(T, k).gather(1, by_e)
+    w = gates.gather(1, by_e).to(out.dtype)
+    y = out[rows[:, 0]] * w[:, :1]
     for s in range(1, k):
-        y = y + out[pair_rows[:, s]] * w[:, s:s + 1]
-    return y, aux, (~keep).sum()
+        y = y + out[rows[:, s]] * w[:, s:s + 1]
+    return y
+
+
+def _grouped_mm(a: torch.Tensor, w: torch.Tensor,
+                ends: torch.Tensor) -> torch.Tensor:
+    """a (N, n_in), its rows in expert order, times w (E, n_in, n_out):
+    expert ``e`` multiplies rows ``ends[e - 1]:ends[e]`` (int32 offsets,
+    ``ends[-1] == N``). On CUDA one grouped GEMM that reads the offsets on
+    the device (``torch._grouped_mm``, which raises where it cannot run);
+    on the CPU a loop over the experts."""
+    w = w.to(a.dtype)
+    if a.is_cuda:
+        return torch._grouped_mm(a, w, offs=ends)
+    out = a.new_empty((a.shape[0], w.shape[-1]))
+    start = 0
+    for e, end in enumerate(ends.tolist()):
+        out[start:end] = a[start:end] @ w[e]
+        start = end
+    return out
+
+
+def _count(stats: dict, ends: torch.Tensor, pairs: int) -> None:
+    """Adds one layer's pairs to ``stats[COUNTS]`` in place (made on first
+    use): routed, dropped, and the busiest expert's pairs (a maximum)."""
+    buf = stats.get(COUNTS)
+    if buf is None:
+        buf = stats[COUNTS] = torch.zeros(3, dtype=torch.int64,
+                                          device=ends.device)
+    ends = ends.long()
+    routed = ends[-1:]
+    busiest = (ends - F.pad(ends[:-1], (1, 0))).max().view(1)
+    buf[:2] += torch.cat([routed, pairs - routed])
+    buf[2:] = torch.maximum(buf[2:], busiest)
+
+
+def read_counts(stats: dict) -> dict | None:
+    """``stats[COUNTS]`` read back to the host (a device sync) as
+    {routed_pairs, dropped_pairs, busiest_pairs}; None before any count."""
+    buf = stats.get(COUNTS)
+    if buf is None:
+        return None
+    routed, dropped, busiest = buf.tolist()
+    return {"routed_pairs": routed, "dropped_pairs": dropped,
+            "busiest_pairs": busiest}
+
+
+def zero_counts(stats: dict) -> None:
+    """Starts ``stats[COUNTS]`` again from zero, in place."""
+    buf = stats.get(COUNTS)
+    if buf is not None:
+        buf.zero_()
+
+
+def _dropless(x_tok: torch.Tensor, p: dict, cfg: ModelConfig,
+              stats: dict | None = None) -> torch.Tensor:
+    """The serving layer on ``x_tok`` (T, d): route, run every (token,
+    slot) pair through its expert, combine. The pairs are sorted by expert
+    (stably, so an expert's rows keep token order) and their rows gathered
+    into one (T * k, d) buffer; each expert's rows end at ``ends[e]``, a
+    device tensor. Returns (T, d); counts into ``stats`` when given."""
+    e = cfg.moe
+    E, k = e.num_experts, e.top_k
+    T = x_tok.shape[0]
+    gates, eids, _ = _route(x_tok, p["router"], k)
+    flat_e = eids.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    ends = torch.searchsorted(
+        flat_e[order], torch.arange(1, E + 1, device=x_tok.device),
+        out_int32=True)
+    rows = x_tok[order // k]
+    h = F.silu(_grouped_mm(rows, p["w_gate"], ends), inplace=True)
+    h.mul_(_grouped_mm(rows, p["w_up"], ends))
+    out = _grouped_mm(h, p["w_down"], ends)
+    del h
+    pair_rows = torch.empty_like(order)
+    pair_rows[order] = torch.arange(T * k, device=x_tok.device)
+    if stats is not None:
+        _count(stats, ends, T * k)
+    return _combine(out, pair_rows, gates, eids)
 
 
 def _moe_ep_body(x, router_w, w_gate, w_up, w_down, *, cfg: ModelConfig,
@@ -253,25 +363,33 @@ def _moe_tp_body(x, router_w, w_gate, w_up, w_down, *, cfg: ModelConfig,
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, mctx=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d). Returns (y, aux). Where ``mctx.stats`` is a dict, the
-    number of (token, slot) pairs dropped for want of capacity is added to
-    its ``"moe_dropped"`` (a device tensor, so the call does not sync).
-    With a mesh the EP or TP body runs on local shards
-    (``models/tp.moe_ffn``)."""
+    """x: (B, S, d). Returns (y, aux). With a mesh the EP or TP body runs
+    on local shards (``models/tp.moe_ffn``). Else, where
+    ``mctx.dropless`` is set (the serving roles), the dropless layer runs
+    and aux is 0 (serving computes no loss); where ``mctx.stats`` is a
+    dict, it counts into ``stats[COUNTS]``. Otherwise the capacity body
+    runs, and the number of (token, slot) pairs it drops for want of
+    capacity is added to ``stats["moe_dropped"]`` (a device tensor, so the
+    call does not sync)."""
     if getattr(mctx, "mesh", None) is not None:
         from repro_torch.models.tp import moe_ffn as mesh_moe_ffn
         return mesh_moe_ffn(p, x, cfg, mctx)
     e = cfg.moe
     B, S, d = x.shape
     T = B * S
-    C = _capacity(T, e.top_k, e.num_experts, e.capacity_factor)
-    y, aux, dropped = _routed(
-        x.reshape(T, d), p["router"], cfg, C,
-        lambda buf: _expert_ffn(buf, p["w_gate"], p["w_up"], p["w_down"]))
-    y = y.reshape(B, S, d)
     stats = getattr(mctx, "stats", None)
-    if stats is not None:
-        stats["moe_dropped"] = stats.get("moe_dropped", 0) + dropped
+    if getattr(mctx, "dropless", False):
+        y = _dropless(x.reshape(T, d), p, cfg, stats).reshape(B, S, d)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        C = _capacity(T, e.top_k, e.num_experts, e.capacity_factor)
+        y, aux, dropped = _routed(
+            x.reshape(T, d), p["router"], cfg, C,
+            lambda buf: _expert_ffn(buf, p["w_gate"], p["w_up"],
+                                    p["w_down"]))
+        y = y.reshape(B, S, d)
+        if stats is not None:
+            stats["moe_dropped"] = stats.get("moe_dropped", 0) + dropped
 
     if e.num_shared_experts:
         sp = p["shared"]

@@ -140,9 +140,12 @@ def _one_rank_batch(cfg, gen):
 @pytest.mark.parametrize("arch", list_archs())
 def test_one_rank_mesh_equals_plain_path(arch):
     """Every arch runs on a mesh: on one rank its prefill and decode steps
-    are the plain path's, bit for bit."""
+    are the plain path's, bit for bit. The mesh bodies keep the capacity
+    MoE layer, so the plain path they are held to is the model's own
+    context (``dropless`` off), not the dropless serving roles'."""
     from torch.distributed.tensor import DTensor
     from repro_torch.launch.mesh import local_process_group, make_host_mesh
+    from repro_torch.models.decode import decode_step, prefill
     from repro_torch.models.model import Model
     cfg = get_config(arch).reduced(dtype="float32")
     plain = Model.create(cfg, device="cpu")
@@ -158,12 +161,13 @@ def test_one_rank_mesh_equals_plain_path(arch):
                          mesh=make_host_mesh(device_type="cpu"))
         m.set_params(params)
         with torch.no_grad():
-            want, wc = plain.prefill(params, batch, 12)
+            want, wc = prefill(params, cfg, plain.mctx, batch, 12)
             got, gc = m.prefill(m.params, batch, 12)
             assert torch.equal(whole(got), want)
             for i in range(3):
                 tok = torch.randint(0, cfg.vocab_size, (2, 1), generator=gen)
-                want, wc = plain.decode(params, wc, tok, start + i)
+                want, wc = decode_step(params, cfg, plain.mctx, wc, tok,
+                                       start + i)
                 got, gc = m.decode(m.params, gc, tok, start + i)
                 assert torch.equal(whole(got), want), f"decode step {i}"
 

@@ -207,3 +207,147 @@ def test_loss_fn_with_aux_matches_reference(arch):
                                                     jparts["ce"]),
                             ("aux", parts["aux"], jparts["aux"])):
         assert float(got) == pytest.approx(float(want), rel=1e-5), name
+
+
+# ---------------------------------------------------------------------------
+# The dropless serving layer
+# ---------------------------------------------------------------------------
+
+
+def _skewed(cfg, seed=5, T=48):
+    """Weights and tokens whose routing piles onto expert 0: every token
+    shares a direction that the router's column 0 reads, so at capacity
+    factor 1.25 the capacity body drops pairs."""
+    p = init_params(moe.moe_specs(cfg), torch.Generator().manual_seed(seed),
+                    "cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    base = torch.randn(cfg.d_model, generator=g)
+    x = base + 0.3 * torch.randn(T, cfg.d_model, generator=g)
+    p["router"] = p["router"].clone()
+    p["router"][:, 0] = 4.0 * base / base.norm()
+    return p, x
+
+
+def _loop(p, x, k):
+    """Every (token, slot) pair through its expert, one expert at a time,
+    in fp32: the layer's meaning with no capacity."""
+    gates, eids, _ = moe._route(x, p["router"], k)
+    y = torch.zeros_like(x)
+    for e in range(p["w_gate"].shape[0]):
+        rows, slot = torch.nonzero(eids == e, as_tuple=True)
+        xe = x[rows]
+        h = (torch.nn.functional.silu(xe @ p["w_gate"][e])
+             * (xe @ p["w_up"][e]))
+        y[rows] += (h @ p["w_down"][e]) * gates[rows, slot][:, None]
+    return y
+
+
+@pytest.mark.parametrize("shared", [False, True])
+def test_dropless_drops_nothing_where_capacity_drops(shared):
+    cfg = _cfg(get_config, capacity_factor=1.25,
+               num_shared_experts=int(shared))
+    p, x = _skewed(cfg)
+    T, k = x.shape[0], cfg.moe.top_k
+    _, eids, _ = moe._route(x, p["router"], k)
+    C = moe._capacity(T, k, cfg.moe.num_experts, 1.25)
+    keep = moe._dispatch_indices(eids, cfg.moe.num_experts, C)[3]
+    assert int((~keep).sum()) > 0          # the capacity body drops here
+
+    stats = {}
+    y, aux = moe.moe_ffn(p, x[None], cfg,
+                         MCtx(ParallelConfig(), stats=stats, dropless=True))
+    want = _loop(p, x, k)
+    if shared:
+        sp = p["shared"]
+        want = want + (torch.nn.functional.silu(x @ sp["w_gate"])
+                       * (x @ sp["w_up"])) @ sp["w_down"]
+    np.testing.assert_allclose(y[0].numpy(), want.numpy(), rtol=TOL,
+                               atol=TOL)
+    assert float(aux) == 0.0
+    routed, dropped, busiest = stats[moe.COUNTS].tolist()
+    assert (routed, dropped) == (T * k, 0)
+    assert busiest == int((eids == 0).sum()) > C
+    capped, _ = moe.moe_ffn(p, x[None], cfg, MCtx(ParallelConfig()))
+    assert not torch.allclose(capped, y, rtol=TOL, atol=TOL)
+
+
+def test_dropless_combine_is_the_sorted_add_in_bf16():
+    """bf16: each token's gated expert outputs added in ascending expert
+    order, rounding after each add, as the capacity body adds them."""
+    cfg = _cfg(get_config, num_experts=4, top_k=3)
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    p = init_params(moe.moe_specs(cfg), torch.Generator().manual_seed(4),
+                    "cpu", torch.bfloat16)
+    x = torch.randn(32, cfg.d_model,
+                    generator=torch.Generator().manual_seed(4)).bfloat16()
+    y = moe._dropless(x, p, cfg)
+    gates, eids, _ = moe._route(x, p["router"], 3)
+    flat = eids.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    ends = torch.searchsorted(flat[order], torch.arange(1, 5),
+                              out_int32=True)
+    rows = x[order // 3]
+    h = (torch.nn.functional.silu(moe._grouped_mm(rows, p["w_gate"], ends))
+         * moe._grouped_mm(rows, p["w_up"], ends))
+    out = moe._grouped_mm(h, p["w_down"], ends)
+    w = gates.reshape(-1)[order].bfloat16()
+    ref = torch.zeros_like(x)
+    for i in range(32 * 3):                # one add at a time, sorted
+        ref[order[i] // 3] += out[i] * w[i]
+    assert torch.equal(y, ref)
+
+
+def test_grouped_mm_loop_takes_each_experts_rows():
+    g = torch.Generator().manual_seed(0)
+    a, w = torch.randn(10, 8, generator=g), torch.randn(4, 8, 6, generator=g)
+    ends = torch.tensor([3, 3, 9, 10], dtype=torch.int32)   # expert 1: none
+    got = moe._grouped_mm(a, w, ends)
+    want = torch.cat([a[:3] @ w[0], a[3:9] @ w[2], a[9:] @ w[3]])
+    assert torch.equal(got, want)
+
+
+def test_the_serving_roles_are_dropless_and_training_is_not():
+    """``Model.prefill`` / ``Model.decode`` run the dropless layer (no
+    ``moe_dropped`` counted, every pair routed), the loss the capacity
+    body; the model's own context stays as it was."""
+    from repro_torch.models.model import Model
+    cfg = get_config("mixtral-8x22b").reduced(dtype="float32")
+    m = Model.create(cfg, device="cpu")
+    params = m.init(torch.Generator().manual_seed(0))
+    m.mctx.stats = {}
+    toks = torch.randint(1, cfg.vocab_size, (2, 9),
+                         generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        _, cache = m.prefill(params, {"tokens": toks[:, :8]}, 12)
+        m.decode(params, cache, toks[:, 8:], 8)
+    assert not m.mctx.dropless and m.serve_mctx.dropless
+    routed, dropped, _ = m.mctx.stats[moe.COUNTS].tolist()
+    pairs = cfg.num_layers * cfg.moe.top_k * 2
+    assert (routed, dropped) == (pairs * 8 + pairs, 0)
+    assert "moe_dropped" not in m.mctx.stats
+    m.loss(params, {"tokens": toks[:, :8], "labels": toks[:, 1:]})
+    assert "moe_dropped" in m.mctx.stats
+
+
+def test_warm_up_batch_of_one_token_serves():
+    """The harness's warm-up: every prompt the same token, so every token
+    routes to the same two experts; the layer's memory is T * k rows all
+    the same, and the engine serves it."""
+    from repro_torch.launch import serve
+    from repro_torch.obs.trace import Tracer
+    cfg = get_config("mixtral-8x22b").reduced(dtype="float32")
+    tracer = Tracer()
+    engine = serve.ServeEngine(cfg, device="cpu", tracer=tracer)
+    out = engine.serve([serve.Request(i, np.ones(16, np.int32), 2)
+                        for i in range(4)])
+    assert [len(r.tokens) for r in out] == [2] * 4
+    m = tracer.metrics
+    assert m.counter("moe.dropped_pairs") == 0
+    assert m.counter("moe.routed_pairs") == \
+        cfg.num_layers * cfg.moe.top_k * 4 * (16 + 2)
+    assert m.gauge("moe.expert_load_max") == 0.5      # two experts, all
+    spans = [e.args["moe"] for e in tracer.events
+             if e.kind == "B" and e.name in ("model.prefill", "model.decode")]
+    assert [s["routed_pairs"] for s in spans] == \
+        [cfg.num_layers * 2 * 64, cfg.num_layers * 2 * 4,
+         cfg.num_layers * 2 * 4]

@@ -7,7 +7,8 @@ step it replaced, kept here as ``_attn_decode_int``, bit for bit in the
 logits and every cache leaf; the engagement predicate over the ten archs
 and three placements; CPU and offloaded engines that never capture. On a
 card (``gpu``, skipped without one): the replayed tokens against the eager
-path's, the counters, a re-capture on a new batch shape, and a replaced
+path's (mixtral's dropless experts under skewed routing too), the
+counters, a re-capture on a new batch shape, and a replaced
 ``model.decode`` replayed. Nothing here imports JAX, so the ``gpu`` cases
 run on a card without it:
 
@@ -219,6 +220,33 @@ def test_graph_tokens_equal_eager_tokens_on_card(arch, overrides):
     decodes = [e.args["graph"] for e in engine.tracer.events
                if e.kind == "B" and e.name == "model.decode"]
     assert decodes == [1] * STEPS + [0] * STEPS + [1] * STEPS
+
+
+@pytest.mark.gpu
+def test_graph_tokens_equal_eager_tokens_with_skewed_experts_on_card():
+    """Mixtral's dropless layer replayed, its routing skewed: the router
+    reads one column alone, so every token takes expert 1, about half of
+    them expert 0 or 2, and none expert 3 (an empty group in the grouped
+    GEMMs). Every pair is routed in both paths; the counters a traced step
+    reads back add up."""
+    engine = _card_engine("mixtral-8x22b", {"num_layers": 4})
+    router = engine.params_home["moe"]["moe"]["router"]
+    keep = router[..., 0].clone()
+    router.zero_()
+    router[..., 0] = keep
+    replayed = _serve(engine)
+    assert replayed == _eager(engine)
+    assert _counts(engine) == (1, STEPS)
+    m = engine.tracer.metrics
+    cfg = engine.cfg
+    pairs = cfg.num_layers * cfg.moe.top_k
+    assert m.counter("moe.dropped_pairs") == 0
+    assert m.counter("moe.routed_pairs") == \
+        2 * pairs * 4 * 16 + 2 * pairs * 4 * STEPS
+    assert m.gauge("moe.expert_load_max") == 0.5
+    steps = [e.args["moe"] for e in engine.tracer.events
+             if e.kind == "B" and e.name == "model.decode"]
+    assert [s["routed_pairs"] for s in steps] == [pairs * 4] * (2 * STEPS)
 
 
 @pytest.mark.gpu
