@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only heimdall       # probes, micro, apps, fit
     python3 chip_smoke.py --only models         # the model zoo
     python3 chip_smoke.py --only kernel         # K1's holds and timing
+    python3 chip_smoke.py --only decode_kernel  # K8's holds and timing
     python3 chip_smoke.py --only serve,mesh,dryrun  # the mesh path, dry-run
     python3 chip_smoke.py --only heimdall,tooling   # the runner, examples
 
@@ -18,10 +19,11 @@ while the host has the most memory to pin):
   device         the card (nvidia-smi name and power limit), torch and CUDA
                  versions
   build          every kernel family's library (flash attention, paged
-                 attention, quant, probes) compiled by nvcc for sm_90a from
-                 the repo's .cu sources, all at once; seconds and ptxas
-                 register/spill lines for each, and the tensor-core (HMMA)
-                 instructions in each paged attention kernel's SASS
+                 attention, quant, probes, decode attention) compiled by
+                 nvcc for sm_90a from the repo's .cu sources, all at once;
+                 seconds and ptxas register/spill lines for each, and the
+                 tensor-core (HMMA) instructions in each paged attention
+                 kernel's SASS
   train_kernels  K6 and K7 (flat blockwise int8 quantize, dequantize) bit for
                  bit against their plain versions over the reference's sweep
                  (N = 2048, 65536; fp32, bf16), one block, an odd block count
@@ -54,6 +56,14 @@ while the host has the most memory to pin):
                  beside the plain version's, one scaled_dot_product_attention
                  call (a yardstick only; the port never calls it) and the
                  least time the card could take
+  decode_kernel  K8 (dense GQA decode attention over the (B, S, Hkv, d)
+                 cache, the position read on the device) against its plain
+                 version at yi-9b's and mixtral-8x22b's decode shapes (64
+                 sequences, a 544-slot cache, 528 live keys; fp32 and
+                 bf16), one launch a call; in bf16 its time (CUDA events
+                 and device time, inputs cold: a rotation of distinct
+                 caches, twice the L2 together) beside the plain version's
+                 and the byte bound
   paged_kernels  K2 and K3 (paged attention, fp and int8) against their
                  plain versions over the test sweeps, the split kernel's
                  edge cases (a zero-length row, rows shorter than one split,
@@ -78,10 +88,13 @@ while the host has the most memory to pin):
                  DTensors on a one-rank NCCL mesh (make_host_mesh), K1 on
                  the mesh path: the serve phase's 4 prompts prefilled and
                  32 greedy decode steps through Model.prefill / decode;
-                 exactly 48 K1 launches a prefill, the tokens equal to the
-                 serve phase's, the prefill logits within LOGITS_REL_L2 of
-                 its kernel path's, every weight leaf a DTensor over the
-                 serve phase's storage; prefill and decode wall and device
+                 exactly 48 K1 launches a prefill, the tokens equal to
+                 those of the path without a mesh run with the plain decode
+                 attention the mesh path keeps (the serve phase's, which
+                 K8 decodes, printed beside them), the prefill logits
+                 within LOGITS_REL_L2 of its kernel path's, every weight
+                 leaf a DTensor over the serve phase's storage; prefill and
+                 decode wall and device
                  times beside the plain path's on the same weights (the
                  difference is DTensor's host time on one rank), and the
                  peak allocated bytes over one prefill of the dry-run's
@@ -868,6 +881,90 @@ def phase_kernel() -> dict:
     return out
 
 
+# (B, Hq, Hkv, S, d, live keys) of the HBM cells' decode: 64 sequences of
+# 512 prompt tokens and 32 new, at the 16th new token
+K8_SHAPES = {"yi-9b": (64, 32, 4, 544, 128, 528),
+             "mixtral-8x22b": (64, 48, 8, 544, 128, 528)}
+
+
+def decode_attention_bound(B, Hq, Hkv, d, live, size: int) -> dict:
+    """K8: the live K and V rows read once, q read and the output written
+    once, against P . V's fp32 FMAs (2 * d FLOP per query head and live
+    key; q . k runs on the tensor cores)."""
+    kv = 2 * B * live * Hkv * d * size
+    return bound(kv + 2 * B * Hq * d * size, 2.0 * B * Hq * d * live)
+
+
+def phase_decode_kernel() -> dict:
+    """K8 against its plain version at the HBM cells' decode shapes (fp32
+    and bf16), then its bf16 time beside the plain version's and the
+    bound."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels.decode_attention import (
+        dense_decode_attention, dense_decode_attention_ref)
+    from repro_torch.kernels.decode_attention.ops import split_plan
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def inputs(shape, dtype, sets=1):
+        B, Hq, Hkv, S, d, live = shape
+        dt = getattr(torch, dtype)
+
+        def randn(*dims):
+            return torch.randn(*dims, generator=gen, device="cuda").to(dt)
+        pos = torch.tensor([live - 1], device="cuda")
+        return [(randn(B, 1, Hq, d), randn(B, S, Hkv, d),
+                 randn(B, S, Hkv, d), pos) for _ in range(sets)]
+
+    cases, timing = [], {}
+    for name, shape in K8_SHAPES.items():
+        for dtype in ("float32", "bfloat16"):
+            (q, k, v, pos), = inputs(shape, dtype)
+            before = kernels.LAUNCHES["decode_attention"]
+            out = dense_decode_attention(q, k, v, pos)
+            launches = kernels.LAUNCHES["decode_attention"] - before
+            ref = dense_decode_attention_ref(q, k, v, pos)
+            torch.cuda.synchronize()
+            c = _compare(out, ref, dtype)
+            c["ok"] = c["ok"] and launches == 1
+            cases.append({"model": name, "dtype": dtype,
+                          "shape": list(shape), "launches": launches, **c})
+            del q, k, v, out, ref
+        B, Hq, Hkv, S, d, live = shape
+        split, per = split_plan(B, Hkv, S, sms)
+        sets = inputs(shape, "bfloat16",
+                      cold_sets(2 * B * S * Hkv * d * 2))
+        kern = rotation([functools.partial(dense_decode_attention, *x)
+                         for x in sets])
+        plain = rotation([functools.partial(dense_decode_attention_ref, *x)
+                          for x in sets])
+        t = {"split": split, "per": per, "cold_sets": len(sets),
+             "kernel_ms": cuda_ms(kern),
+             "kernel_device": device_ms_per_call(
+                 kern, kernels_per_call=1 if split == 1 else 2),
+             "plain_ms": cuda_ms(plain, iters=5, warmup=1)}
+        b = decode_attention_bound(B, Hq, Hkv, d, live, 2)
+        dev_ms = t["kernel_device"]["ms"]
+        t.update(bound_us=b["bound_us"], bound_by=b["bound_by"],
+                 bytes=b["bytes"],
+                 gb_per_s=b["bytes"] / (dev_ms or t["kernel_ms"]) / 1e6,
+                 bound_share=b["bound_us"] / 1e3 / t["kernel_ms"],
+                 bound_share_device=ratio(b["bound_us"] / 1e3, dev_ms),
+                 plain_over_kernel=t["plain_ms"] / t["kernel_ms"])
+        timing[name] = t
+        del sets, kern, plain
+        torch.cuda.empty_cache()
+    out = {"phase": "decode_kernel", "kernel": "decode_attention",
+           "cases": cases, "timing_bf16": timing}
+    emit(out)
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"decode_attention disagrees with its plain "
+                             f"version: {bad}")
+    return out
+
+
 def bound(nbytes: float, flops: float = 0.0,
           peak: float = PEAK_FLOPS["float32"]) -> dict:
     """Least time for a call that must move ``nbytes`` and do ``flops``
@@ -1533,6 +1630,22 @@ def greedy_run(model, params, batch: dict, gen: int) -> dict:
             "decode_step_median_ms": steps[len(steps) // 2] * 1e3}
 
 
+@contextlib.contextmanager
+def plain_decode_attention():
+    """The model's GQA decode steps with the plain decode attention (the
+    arithmetic the mesh path keeps) in place of K8, for a reference run."""
+    from repro_torch.kernels.decode_attention import (
+        dense_decode_attention_ref)
+    from repro_torch.models import attention
+    kernel = attention.dense_decode_attention
+    attention.dense_decode_attention = (
+        lambda q, k, v, pos=None: dense_decode_attention_ref(q, k, v, pos))
+    try:
+        yield
+    finally:
+        attention.dense_decode_attention = kernel
+
+
 def phase_mesh(serve=None) -> dict:
     import numpy as np
     import torch
@@ -1577,6 +1690,11 @@ def phase_mesh(serve=None) -> dict:
             greedy_run(plain, params, warm, 2)
             greedy_run(model, mparams, warm, 2)
             plain_run = greedy_run(plain, params, batch, GEN)
+            # the mesh path's arithmetic without the mesh: its tokens must
+            # match bit for bit (K8's differ by rounding at near-ties)
+            with plain_decode_attention():
+                same = np.stack(greedy_run(plain, params, batch,
+                                           GEN)["tokens"], axis=1)
             kernels.reset_launches()
             mesh_run = greedy_run(model, mparams, batch, GEN)
             launches = dict(kernels.LAUNCHES)
@@ -1629,7 +1747,9 @@ def phase_mesh(serve=None) -> dict:
            "launches": launches,
            "launches_per_prefill": launches["flash_attention"],
            "logits_rel_l2_vs_serve": rel_l2,
+           "tokens_equal_plain_attention": bool((toks == same).all()),
            "tokens_equal_serve": bool((toks == ref_tokens).all()),
+           "tokens_differing_from_serve": int((toks != ref_tokens).sum()),
            "weight_leaves_dtensor": len(placed),
            "one_chip_prefill_peak_bytes": peak,
            "one_chip_prefill_base_bytes": base}
@@ -1638,9 +1758,10 @@ def phase_mesh(serve=None) -> dict:
         raise AssertionError(f"flash_attention launched "
                              f"{launches['flash_attention']} times in the "
                              f"mesh prefill; expected {cfg.num_layers}")
-    if not out["tokens_equal_serve"]:
-        raise AssertionError(f"mesh tokens differ from the serve phase's: "
-                             f"{toks[:, :8]} vs {ref_tokens[:, :8]}")
+    if not out["tokens_equal_plain_attention"]:
+        raise AssertionError(f"mesh tokens differ from the path without a "
+                             f"mesh under the same decode attention: "
+                             f"{toks[:, :8]} vs {same[:, :8]}")
     if not (rel_l2 <= LOGITS_REL_L2):
         raise AssertionError(f"mesh prefill logits: relative L2 {rel_l2} "
                              f"from the serve phase's > {LOGITS_REL_L2}")
@@ -4602,6 +4723,7 @@ def phase_all() -> None:
         del train_ctx
         phase_train_resume()
     kern = phase_kernel()
+    phase_decode_kernel()
     paged = phase_paged_kernels()
     serve = phase_serve()
     mesh = phase_mesh(serve)
@@ -4645,7 +4767,8 @@ ONLY = {"serve": phase_serve, "serve_offload": phase_serve_offload,
         "pager": phase_pager, "paged_kernels": phase_paged_kernels,
         "degrade": phase_degrade, "disagg": phase_disagg,
         "heimdall": phase_heimdall, "models": phase_models,
-        "kernel": phase_kernel, "tooling": phase_tooling}
+        "kernel": phase_kernel, "decode_kernel": phase_decode_kernel,
+        "tooling": phase_tooling}
 
 
 def main(argv=None) -> int:

@@ -41,7 +41,8 @@ FAMILIES = {"flash_attention": ("flash_attention",),
             "quant": ("quantize_pages", "dequantize_pages", "quantize",
                       "dequantize"),
             "probes": ("pointer_chase", "tier_sum", "tier_scatter_add",
-                       "tier_copy")}
+                       "tier_copy"),
+            "decode_attention": ("decode_attention",)}
 LAUNCHES: dict[str, int] = {k: 0 for ks in FAMILIES.values() for k in ks}
 LAUNCHES["flash_attention_windowed"] = 0    # of K1's, those with window > 0
 

@@ -9,9 +9,12 @@ through the hand-written flash attention kernel (``repro_torch.kernels``).
 
 Decode uses single-token attention against a KV cache, which it updates in
 place. Scores, softmax and context are fp32 in every path, cast to the
-activation dtype at the end. MLA (deepseek-v3) prefills through chunked
-attention, as the reference does (its value head dim differs from its
-query head dim), and decodes in the absorbed latent form. Whisper's
+activation dtype at the end. GQA decode (self and cross) goes through the
+hand-written dense decode attention kernel on CUDA tensors and its plain
+version (``decode_attention``, re-exported here) on the CPU. MLA
+(deepseek-v3) prefills through chunked attention, as the reference does
+(its value head dim differs from its query head dim), and decodes in the
+absorbed latent form. Whisper's
 decoder attends to its encoder's output through cross-attention: in
 prefill through chunked attention (the flash kernel's gate wants as many
 keys as queries, as the reference's does), in decode against the cross
@@ -26,26 +29,17 @@ from typing import Optional
 import torch
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.kernels.decode_attention import dense_decode_attention
+from repro_torch.kernels.decode_attention.ref import (  # noqa: F401
+    NEG_INF, _gqa_ctx, _gqa_scores, decode_attention)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import apply_rope, rmsnorm, rmsnorm_spec
 from repro_torch.models.params import ParamSpec
-
-NEG_INF = -1e30
 
 
 # --------------------------------------------------------------------------
 # Core chunked attention
 # --------------------------------------------------------------------------
-
-
-def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """q: (B, Sq, Hkv, G, dh), k: (B, Sk, Hkv, dh) -> fp32 (B, Hkv, G, Sq, Sk)."""
-    return torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float())
-
-
-def _gqa_ctx(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """p: (B, Hkv, G, Sq, Sk), v: (B, Sk, Hkv, dh) -> (B, Sq, Hkv, G, dh)."""
-    return torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(p.dtype))
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -93,24 +87,6 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = torch.softmax(scores, dim=-1)
         outs.append(_gqa_ctx(p, v_c).to(q.dtype))   # (B,qc,Hkv,G,dh)
     return torch.cat(outs, dim=1).reshape(B, Sq, Hq, dv)
-
-
-def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, valid_mask: torch.Tensor,
-                     scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, 1, Hq, dh); caches: (B, S, Hkv, dh); valid_mask: (S,) or (B,S)."""
-    B, _, Hq, dh = q.shape
-    _, S, Hkv, _ = k_cache.shape
-    G = Hq // Hkv
-    scale = scale if scale is not None else dh ** -0.5
-    qg = q.reshape(B, 1, Hkv, G, dh)
-    scores = _gqa_scores(qg, k_cache) * scale        # (B,Hkv,G,1,S)
-    if valid_mask.dim() == 1:
-        valid_mask = valid_mask[None, :]
-    scores = torch.where(valid_mask[:, None, None, None, :], scores, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
-    ctx = _gqa_ctx(p, v_cache)
-    return ctx.reshape(B, 1, Hq, dh).to(q.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -217,10 +193,9 @@ def attn_decode(p: dict, x: torch.Tensor, pos: torch.Tensor, cache: dict,
     slot = pos % S if window > 0 else pos
     k_cache.index_copy_(1, slot, k_new.to(k_cache.dtype))
     v_cache.index_copy_(1, slot, v_new.to(v_cache.dtype))
-    valid = torch.arange(S, device=x.device) <= pos
-    if window > 0:
-        valid |= pos >= S                # ring: all valid once wrapped
-    ctx = decode_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype), valid)
+    # the first min(pos + 1, S) slots are live: a ring cache that has
+    # wrapped has all of them
+    ctx = dense_decode_attention(q, k_cache, v_cache, pos)
     return _out_proj(ctx, p["w_o"]), cache
 
 
@@ -231,10 +206,7 @@ def attn_decode_cross(p: dict, x: torch.Tensor, cross_kv: dict,
     q = _proj_heads(x, p["w_q"])
     if "b_q" in p:
         q = q + p["b_q"].to(q.dtype)
-    S = cross_kv["k"].shape[1]
-    valid = torch.ones(S, dtype=torch.bool, device=x.device)
-    ctx = decode_attention(q, cross_kv["k"].to(q.dtype),
-                           cross_kv["v"].to(q.dtype), valid)
+    ctx = dense_decode_attention(q, cross_kv["k"], cross_kv["v"])
     return _out_proj(ctx, p["w_o"])
 
 

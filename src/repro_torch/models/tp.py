@@ -729,7 +729,10 @@ def _heads_out(mctx, ctx, wo_, q_sh: bool):
 def _gqa_chunk(mctx, q_, kc_, vc_, valid, seq, n_chunks, scale=None):
     """Decode attention of all heads' q (B, 1, Hq, dh) against this rank's
     chunk of a (B, S_l, Hkv, dh) cache; one chunk takes the plain path's
-    arithmetic, more the flash-decoding combine."""
+    arithmetic, more the flash-decoding combine. The mesh path keeps these
+    plain einsums on every device: the dense decode attention kernel that
+    the decode without a mesh calls is not used here, and no benchmark
+    cell runs this path."""
     if n_chunks == 1:
         return decode_attention(q_, kc_.to(q_.dtype), vc_.to(q_.dtype),
                                 valid, scale)

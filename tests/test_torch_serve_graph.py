@@ -8,7 +8,9 @@ logits and every cache leaf; the engagement predicate over the ten archs
 and three placements; CPU and offloaded engines that never capture. On a
 card (``gpu``, skipped without one): the replayed tokens against the eager
 path's (mixtral's dropless experts under skewed routing too), the
-counters, a re-capture on a new batch shape, and a replaced
+counters, the dense decode attention kernel's launches (one a layer in
+each warm-up step and at capture, none in a replay, one a layer in each
+eager step), a re-capture on a new batch shape, and a replaced
 ``model.decode`` replayed. Nothing here imports JAX, so the ``gpu`` cases
 run on a card without it:
 
@@ -20,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import kernels
 from repro_torch.config.base import get_config, list_archs
 from repro_torch.launch import serve
 from repro_torch.models import decode as decode_mod
@@ -213,9 +216,19 @@ def test_graph_tokens_equal_eager_tokens_on_card(arch, overrides):
     steps: positions 30-37 in a 32-slot ring), mixtral's MoE and
     qwen2-vl's M-RoPE."""
     engine = _card_engine(arch, overrides)
+    layers = engine.cfg.num_layers          # every layer attends
+    start = kernels.LAUNCHES["decode_attention"]
     replayed = _serve(engine, (30, 29, 28, 30))
+    # the warm-up steps and the capture run the layers' Python; a replay
+    # launches the captured kernels without it
+    captured = kernels.LAUNCHES["decode_attention"] - start
+    assert captured == (serve.DecodeGraph.WARMUP + 1) * layers
     assert replayed == _eager(engine, (30, 29, 28, 30))
+    assert kernels.LAUNCHES["decode_attention"] - start == \
+        captured + STEPS * layers
     assert _serve(engine, (30, 29, 28, 30)) == replayed   # no new capture
+    assert kernels.LAUNCHES["decode_attention"] - start == \
+        captured + STEPS * layers
     assert _counts(engine) == (1, 2 * STEPS)
     decodes = [e.args["graph"] for e in engine.tracer.events
                if e.kind == "B" and e.name == "model.decode"]
@@ -234,7 +247,10 @@ def test_graph_tokens_equal_eager_tokens_with_skewed_experts_on_card():
     keep = router[..., 0].clone()
     router.zero_()
     router[..., 0] = keep
+    start = kernels.LAUNCHES["decode_attention"]
     replayed = _serve(engine)
+    assert kernels.LAUNCHES["decode_attention"] - start == \
+        (serve.DecodeGraph.WARMUP + 1) * 4
     assert replayed == _eager(engine)
     assert _counts(engine) == (1, STEPS)
     m = engine.tracer.metrics
