@@ -114,8 +114,9 @@ def decode_graph_engages(cfg, device, offload_weights: bool,
     device, with the weights resident (an offloaded engine fetches a tree
     at new addresses every call), off a mesh, and where every segment is
     GQA attention blocks (dense or MoE, windowed or not, M-RoPE included),
-    whose step reads its position on the device only. MLA, Mamba2, xLSTM
-    and whisper decode eagerly."""
+    the blocks a gpu test holds replayed against their eager step. MLA
+    reads its position on the device too, but no gpu test holds a replayed
+    MLA step yet; MLA, Mamba2, xLSTM and whisper decode eagerly."""
     if (torch.device(device).type != "cuda" or offload_weights
             or mesh is not None or cfg.encoder_decoder
             or cfg.attn_type == "mla"):

@@ -270,20 +270,21 @@ def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
     return _out_proj(ctx, p["w_o"]), {"ckv": ckv, "k_rope": k_rope}
 
 
-def mla_decode(p: dict, x: torch.Tensor, pos: int, cache: dict,
+def mla_decode(p: dict, x: torch.Tensor, pos: torch.Tensor, cache: dict,
                cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """Absorbed-form MLA decode: scores and context computed in latent
     space (per step O(S * (kv_lora + rope)) per head, the DeepSeek serving
-    formulation), in fp32. cache: {ckv: (B, S, r), k_rope: (B, S, rope)},
-    written at ``pos`` in place and returned."""
+    formulation), in fp32. ``pos`` is a one-element int64 tensor on x's
+    device, read on the device only, as ``attn_decode`` reads it. cache:
+    {ckv: (B, S, r), k_rope: (B, S, rope)}, written at ``pos`` in place
+    and returned."""
     m = cfg.mla
-    B = x.shape[0]
-    positions = torch.full((B, 1), pos, device=x.device)
+    positions = pos.expand(x.shape[0], 1)
     q_nope, q_rope = _mla_q(p, x, positions, cfg)          # (B,1,H,*)
     ckv_new, krope_new = _mla_latents(p, x, positions, cfg)
     ckv, k_rope = cache["ckv"], cache["k_rope"]
-    ckv[:, pos] = ckv_new[:, 0].to(ckv.dtype)
-    k_rope[:, pos] = krope_new[:, 0].to(k_rope.dtype)
+    ckv.index_copy_(1, pos, ckv_new.to(ckv.dtype))
+    k_rope.index_copy_(1, pos, krope_new.to(k_rope.dtype))
     S = ckv.shape[1]
     # absorb W_uk into q: (B,1,H,nope) x (r,H,nope) -> (B,1,H,r)
     q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"].to(x.dtype))

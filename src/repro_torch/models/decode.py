@@ -6,18 +6,22 @@ prefill output feeds decode directly. A decode step writes the new K/V
 (or latents) into the cache in place and copies each recurrent block's new
 state over its old one, so the cache it is given is the cache it returns.
 
-The position of the decoded token is a Python int or a one-element int64
-tensor on the device. GQA attention (``attn_decode``) reads it as the
-tensor, made once a step from an int, so a step of attention blocks alone
-reads no position on the host and can be captured as a CUDA graph and
-replayed at every position (``launch/serve.py``); MLA and the mesh path
-take the int.
+The position of the decoded token is given to ``decode_step`` as a Python
+int or a one-element int64 tensor on the device, and converted there once.
+Off a mesh every block reads it as that tensor (GQA's ``attn_decode`` and
+MLA's ``mla_decode`` alike), made once a step from an int, so a step reads
+no position on the host and can be captured as a CUDA graph and replayed
+at every position (``launch/serve.py``); on a mesh the blocks take the
+int.
 
 Whisper (encoder-decoder): ``prefill`` of ``{"frames"}`` runs the encoder
 and returns its output (not logits) with a zeroed self cache and each
 decoder layer's cross K/V of the encoder's output; ``decode_step`` then
 runs the decoder one token at a time, reading the cross cache only.
 
+As in ``models/transformer.py``, each entry point (``prefill``,
+``decode_step``, ``zeros_cache``) picks its path once by ``MCtx.mesh``:
+``PLAIN`` or ``MESH``, the forward's records with the decode blocks added.
 With a mesh the cache leaves are DTensors placed as the rules say (the
 K/V and latents sequence-sharded, ``act_cache_seq``; recurrent states by
 head, ``act_heads``), every arch decodes through the blocks of
@@ -27,23 +31,27 @@ vocab-sharded (``act_vocab``) where ``model`` divides the vocabulary.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.config.base import ModelConfig
-from repro_torch.models import kvcache, tp, tp_recurrent
+from repro_torch.models import kvcache, tp, tp_recurrent, transformer
 from repro_torch.models.attention import (_proj_heads, attn_decode,
                                           attn_decode_cross, mla_decode)
 from repro_torch.models.context import MCtx
-from repro_torch.models.layers import (embed_tokens, mlp_apply, rmsnorm,
+from repro_torch.models.layers import (mlp_apply, rmsnorm,
                                        sinusoidal_pos_emb, unembed)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import (map_specs, stack_specs, torch_dtype,
                                       tree_map)
 from repro_torch.models.sharding import local_shape
 from repro_torch.models.ssm import ssm_decode
-from repro_torch.models.transformer import (Seg, _with_positions, encode,
+from repro_torch.models.transformer import (Blocks, Seg, _stack,
+                                            _with_positions, encode,
                                             forward_hidden, layer_views,
                                             segment_plan)
 from repro_torch.models.xlstm import mlstm_decode, slstm_decode
@@ -74,18 +82,14 @@ def cache_specs(cfg: ModelConfig, mctx: MCtx, B: int, S: int) -> dict:
 # --------------------------------------------------------------------------
 
 
-def _attn_block_dec(p, x, pos, pos_t, cache, cfg, mctx, *, window,
+def _attn_block_dec(p, x, pos: torch.Tensor, cache, cfg, mctx, *, window,
                     moe=False):
-    """``pos`` as given to the step (MLA and the mesh path read it),
-    ``pos_t`` the tensor ``attn_decode`` reads."""
-    if mctx.mesh is not None:
-        return tp.attn_block_dec(p, x, pos, cache, cfg, mctx, window=window,
-                                 moe=moe)
+    """``pos``: the step's one-element int64 device tensor."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.attn_type == "mla":
         a, _ = mla_decode(p["attn"], h, pos, cache, cfg)
     else:
-        a, _ = attn_decode(p["attn"], h, pos_t, cache, cfg, window=window)
+        a, _ = attn_decode(p["attn"], h, pos, cache, cfg, window=window)
     x = x + a
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if moe:
@@ -95,22 +99,56 @@ def _attn_block_dec(p, x, pos, pos_t, cache, cfg, mctx, *, window,
     return x + f
 
 
-def _recurrent_dec(step, key: str, kind: str):
+def _cross_block_dec(p, x, pos: torch.Tensor, cache, cfg, mctx):
+    """One token through whisper's decoder block: causal self-attention
+    against the self cache (written in place), then cross-attention to the
+    cached encoder K/V and the ungated MLP."""
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    a, _ = attn_decode(p["attn"], h, pos, cache["self"], cfg, use_rope=False)
+    x = x + a
+    hx = rmsnorm(x, p["ln_x"], cfg.norm_eps)
+    x = x + attn_decode_cross(p["xattn"], hx, cache["cross"], cfg)
+    return x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps),
+                         gated=False)
+
+
+_CELL_DEC = {"mamba": ssm_decode, "mlstm": mlstm_decode,
+             "slstm": slstm_decode}
+
+
+def _recurrent_block_dec(kind: str, p, x, cache, cfg, mctx: MCtx):
     """A residual block around a recurrent cell's decode step that copies
     the cell's new state into ``cache`` (views of the stacked cache)."""
-    def block(p, x, cache, cfg, mctx: MCtx):
-        if mctx.mesh is not None:
-            return tp_recurrent.block_dec(kind, p, x, cache, cfg, mctx)
-        out, new = step(p[key], rmsnorm(x, p["ln"], cfg.norm_eps), cache,
-                        cfg)
-        tree_map(lambda old, nw: old.copy_(nw), cache, new)
-        return x + out
-    return block
+    out, new = _CELL_DEC[kind](p["ssm" if kind == "mamba" else "cell"],
+                               rmsnorm(x, p["ln"], cfg.norm_eps), cache, cfg)
+    tree_map(lambda old, nw: old.copy_(nw), cache, new)
+    return x + out
 
 
-_mamba_block_dec = _recurrent_dec(ssm_decode, "ssm", "mamba")
-_mlstm_block_dec = _recurrent_dec(mlstm_decode, "cell", "mlstm")
-_slstm_block_dec = _recurrent_dec(slstm_decode, "cell", "slstm")
+@dataclasses.dataclass(frozen=True)
+class DecodeBlocks(Blocks):
+    """A path's forward functions and its decode blocks, in the mesh's
+    signatures."""
+    attn_dec: Callable        # (p, x, pos, cache, cfg, mctx, *, window, moe)
+    recurrent_dec: Callable   # (kind, p, x, cache, cfg, mctx)
+    cross_dec: Callable       # whisper's decoder block, one token
+    last_token: Callable      # (mctx, x): x[:, -1:]
+    unembed: Callable         # (mctx, emb, x, tied)
+    kv_proj: Callable         # (mctx, enc_out, w): whisper's cross K or V
+
+
+PLAIN = DecodeBlocks(
+    **vars(transformer.PLAIN), attn_dec=_attn_block_dec,
+    recurrent_dec=_recurrent_block_dec, cross_dec=_cross_block_dec,
+    last_token=lambda mctx, x: x[:, -1:],
+    unembed=lambda mctx, emb, x, tied: unembed(emb, x, tied),
+    kv_proj=lambda mctx, x, w: _proj_heads(x, w))
+MESH = DecodeBlocks(
+    **vars(transformer.MESH), attn_dec=tp.attn_block_dec,
+    recurrent_dec=tp_recurrent.block_dec, cross_dec=tp.cross_block_dec,
+    last_token=tp.last_token, unembed=tp.unembed,
+    kv_proj=lambda mctx, x, w: tp._proj(mctx, x, w,
+                                        ("embed", "kv_heads", None)))
 
 
 # --------------------------------------------------------------------------
@@ -118,43 +156,37 @@ _slstm_block_dec = _recurrent_dec(slstm_decode, "cell", "slstm")
 # --------------------------------------------------------------------------
 
 
-def seg_decode(p, cache, x, pos, pos_t, cfg: ModelConfig, mctx: MCtx,
-               seg: Seg, shared_attn=None):
-    """One token through a segment; its stacked cache is updated in
-    place. ``pos``/``pos_t``: as ``_attn_block_dec`` takes them."""
+def seg_decode(p, cache, x, pos, cfg: ModelConfig, mctx: MCtx, seg: Seg,
+               blocks: DecodeBlocks, shared_attn=None):
+    """One token through a segment's ``blocks``; its stacked cache is
+    updated in place. ``pos``: the path's position (``decode_step``)."""
     for lp, lc in zip(layer_views(p, seg.n), layer_views(cache, seg.n)):
         if seg.kind == "attn":
-            x = _attn_block_dec(lp, x, pos, pos_t, lc, cfg, mctx,
-                                window=seg.window, moe=seg.moe)
+            x = blocks.attn_dec(lp, x, pos, lc, cfg, mctx, window=seg.window,
+                                moe=seg.moe)
         elif seg.kind == "gemma":
             for ll, cl in zip(layer_views(lp["local"], seg.sub),
                               layer_views(lc["local"], seg.sub)):
-                x = _attn_block_dec(ll, x, pos, pos_t, cl, cfg, mctx,
+                x = blocks.attn_dec(ll, x, pos, cl, cfg, mctx,
                                     window=seg.window)
-            x = _attn_block_dec(lp["global"], x, pos, pos_t, lc["global"],
-                                cfg, mctx, window=0)
+            x = blocks.attn_dec(lp["global"], x, pos, lc["global"], cfg,
+                                mctx, window=0)
         elif seg.kind == "zamba":
             for ll, cl in zip(layer_views(lp["mamba"], seg.sub),
                               layer_views(lc["mamba"], seg.sub)):
-                x = _mamba_block_dec(ll, x, cl, cfg, mctx)
-            sa = shared_attn
-            if mctx.mesh is not None:
-                x = tp.attn_block_dec(sa, x, pos, lc["attn"], cfg, mctx,
-                                      window=0)
-                continue
-            h = rmsnorm(x, sa["ln1"], cfg.norm_eps)
-            a, _ = attn_decode(sa["attn"], h, pos_t, lc["attn"], cfg)
-            x = x + a
-            x = x + mlp_apply(sa["mlp"], rmsnorm(x, sa["ln2"], cfg.norm_eps))
+                x = blocks.recurrent_dec("mamba", ll, x, cl, cfg, mctx)
+            x = blocks.attn_dec(shared_attn, x, pos, lc["attn"], cfg, mctx,
+                                window=0)
         elif seg.kind == "mamba":
-            x = _mamba_block_dec(lp, x, lc, cfg, mctx)
+            x = blocks.recurrent_dec("mamba", lp, x, lc, cfg, mctx)
         elif seg.kind == "xlstm":
             for ll, cl in zip(layer_views(lp["mlstm"], seg.sub),
                               layer_views(lc["mlstm"], seg.sub)):
-                x = _mlstm_block_dec(ll, x, cl, cfg, mctx)
-            x = _slstm_block_dec(lp["slstm"], x, lc["slstm"], cfg, mctx)
+                x = blocks.recurrent_dec("mlstm", ll, x, cl, cfg, mctx)
+            x = blocks.recurrent_dec("slstm", lp["slstm"], x, lc["slstm"],
+                                     cfg, mctx)
         elif seg.kind == "xlstm_tail":
-            x = _mlstm_block_dec(lp, x, lc, cfg, mctx)
+            x = blocks.recurrent_dec("mlstm", lp, x, lc, cfg, mctx)
         else:
             raise ValueError(seg.kind)
     return x, cache
@@ -212,8 +244,9 @@ def prefill(params, cfg: ModelConfig, mctx: MCtx, batch: dict,
     ``max_len`` sizes the decode cache buffers (0 -> prompt length; pass
     prompt+max_new_tokens for serving). Whisper: see
     ``_whisper_prefill``."""
+    blocks = MESH if mctx.mesh is not None else PLAIN
     if cfg.encoder_decoder:
-        return _whisper_prefill(params, cfg, mctx, batch,
+        return _whisper_prefill(params, cfg, mctx, blocks, batch,
                                 max_decode_len=max_len or 1024,
                                 q_chunk=q_chunk)
     x, caches, _ = forward_hidden(params, cfg, mctx, batch, collect=True,
@@ -221,11 +254,8 @@ def prefill(params, cfg: ModelConfig, mctx: MCtx, batch: dict,
     B, S = x.shape[:2]
     if max_len and max_len > S:
         caches = _pad_caches_to(caches, cfg, mctx, B, max_len)
-    if mctx.mesh is not None:
-        logits = tp.unembed(mctx, params["embed"], tp.last_token(mctx, x),
+    logits = blocks.unembed(mctx, params["embed"], blocks.last_token(mctx, x),
                             cfg.tie_embeddings)
-    else:
-        logits = unembed(params["embed"], x[:, -1:], cfg.tie_embeddings)
     logits = mctx.constrain(logits, ("act_batch", None, "act_vocab"))
     return logits, caches
 
@@ -242,7 +272,8 @@ def zeros_cache(s, mctx: MCtx, device) -> torch.Tensor:
     return DTensor.from_local(local, mctx.mesh, pl, run_check=False)
 
 
-def _whisper_prefill(params, cfg: ModelConfig, mctx: MCtx, batch: dict,
+def _whisper_prefill(params, cfg: ModelConfig, mctx: MCtx,
+                     blocks: DecodeBlocks, batch: dict,
                      max_decode_len: int = 1024, q_chunk: int = 512):
     """The encoder over ``batch["frames"]`` (B, S_enc, d). Returns (the
     encoder output, caches): a zeroed self cache of ``max_decode_len``
@@ -250,90 +281,48 @@ def _whisper_prefill(params, cfg: ModelConfig, mctx: MCtx, batch: dict,
     encoder output's projections (no bias, as in the reference)."""
     enc_out = encode(params, cfg, mctx, batch["frames"], q_chunk=q_chunk)
     B = enc_out.shape[0]
-    dec = params["decoder"]
     specs = cache_specs(cfg, mctx, B, max_decode_len)["decoder"]
     self_c = map_specs(lambda s: zeros_cache(s, mctx, enc_out.device),
                        specs["self"])
-    if mctx.mesh is not None:
-        axes = specs["cross"]["k"].axes[1:]
-        cross = {name: tp.stack([
-            mctx.constrain(tp._proj(mctx, enc_out, w,
-                                    ("embed", "kv_heads", None)), axes)
-            for w in tp.unbind(dec["xattn"][key])])
-            for name, key in (("k", "w_k"), ("v", "w_v"))}
-        return enc_out, {"decoder": {"self": self_c, "cross": cross}}
-    cross = {name: torch.stack([_proj_heads(enc_out, w)
-                                for w in torch.unbind(dec["xattn"][key])])
-             for name, key in (("k", "w_k"), ("v", "w_v"))}
+    axes = specs["cross"]["k"].axes[1:]
+    xattn = layer_views(params["decoder"]["xattn"], cfg.num_layers)
+    cross = {name: _stack([mctx.constrain(
+        blocks.kv_proj(mctx, enc_out, lp[key]), axes) for lp in xattn])
+        for name, key in (("k", "w_k"), ("v", "w_v"))}
     return enc_out, {"decoder": {"self": self_c, "cross": cross}}
-
-
-def _whisper_decode(params, cfg: ModelConfig, cache: dict, x: torch.Tensor,
-                    pos_t: torch.Tensor) -> torch.Tensor:
-    """One token through whisper's decoder: sinusoidal position, causal
-    self-attention against the self cache (written in place), then
-    cross-attention to the cached encoder K/V and the ungated MLP."""
-    dtype = x.dtype
-    x = x + sinusoidal_pos_emb(pos_t, cfg.d_model).to(dtype)
-    dec = cache["decoder"]
-    for lp, lc in zip(layer_views(params["decoder"], cfg.num_layers),
-                      layer_views(dec, cfg.num_layers)):
-        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        a, _ = attn_decode(lp["attn"], h, pos_t, lc["self"], cfg,
-                           use_rope=False)
-        x = x + a
-        hx = rmsnorm(x, lp["ln_x"], cfg.norm_eps)
-        x = x + attn_decode_cross(lp["xattn"], hx, lc["cross"], cfg)
-        x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps),
-                          gated=False)
-    return x
 
 
 def decode_step(params, cfg: ModelConfig, mctx: MCtx, cache: dict,
                 tokens: torch.Tensor, pos) -> tuple[torch.Tensor, dict]:
     """One token step. tokens: (B, 1) int; pos: position of the token, an
-    int or a one-element int64 tensor on the tokens' device (the int
-    everywhere on a mesh, and wherever MLA decodes).
+    int or a one-element int64 tensor on the tokens' device. Off a mesh
+    the blocks read it as that tensor, made here from an int; on a mesh
+    as an int.
 
     ``cache`` is updated in place and returned."""
-    if mctx.mesh is not None:
-        return _decode_step_mesh(params, cfg, mctx, cache, tokens, pos)
-    pos_t = (pos if isinstance(pos, torch.Tensor) else
-             torch.full((1,), pos, dtype=torch.int64, device=tokens.device))
-    x = embed_tokens(params["embed"], tokens, torch_dtype(cfg.dtype))
-    if cfg.encoder_decoder:
-        x = _whisper_decode(params, cfg, cache, x, pos_t)
+    if mctx.mesh is None:
+        blocks = PLAIN
+        if not isinstance(pos, torch.Tensor):
+            pos = torch.full((1,), pos, dtype=torch.int64,
+                             device=tokens.device)
     else:
-        shared = params.get("shared_attn")
-        for seg in segment_plan(cfg):
-            x, cache[seg.name] = seg_decode(params[seg.name],
-                                            cache[seg.name], x, pos, pos_t,
-                                            cfg, mctx, seg,
-                                            shared_attn=shared)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = unembed(params["embed"], x, cfg.tie_embeddings)
-    return logits, cache
-
-
-def _decode_step_mesh(params, cfg: ModelConfig, mctx: MCtx, cache: dict,
-                      tokens, pos: int):
-    x = tp.embed(mctx, params["embed"]["tok"], tokens, torch_dtype(cfg.dtype))
+        blocks, pos = MESH, int(pos)
+    x = blocks.embed(mctx, params["embed"], tokens, torch_dtype(cfg.dtype))
     x = mctx.constrain(x, ("act_batch", None, "act_embed"))
     if cfg.encoder_decoder:
-        x = _with_positions(x, sinusoidal_pos_emb(
-            torch.full((1,), pos, device=x.device), cfg.d_model).to(x.dtype),
-            mctx)
+        pe = sinusoidal_pos_emb(torch.as_tensor(pos, device=x.device)
+                                .reshape(1), cfg.d_model)
+        x = _with_positions(x, pe.to(x.dtype), mctx)
         for lp, lc in zip(layer_views(params["decoder"], cfg.num_layers),
                           layer_views(cache["decoder"], cfg.num_layers)):
-            x = tp.cross_block_dec(lp, x, pos, lc, cfg, mctx)
+            x = blocks.cross_dec(lp, x, pos, lc, cfg, mctx)
     else:
         shared = params.get("shared_attn")
         for seg in segment_plan(cfg):
             x, cache[seg.name] = seg_decode(params[seg.name],
-                                            cache[seg.name], x, pos, None,
-                                            cfg, mctx, seg,
+                                            cache[seg.name], x, pos, cfg,
+                                            mctx, seg, blocks,
                                             shared_attn=shared)
-    x = tp.rms_norm(mctx, x, params["final_norm"], cfg.norm_eps)
-    logits = tp.unembed(mctx, params["embed"], x, cfg.tie_embeddings)
-    logits = mctx.constrain(logits, ("act_batch", None, "act_vocab"))
-    return logits, cache
+    x = blocks.norm(mctx, x, params["final_norm"], cfg.norm_eps)
+    logits = blocks.unembed(mctx, params["embed"], x, cfg.tie_embeddings)
+    return mctx.constrain(logits, ("act_batch", None, "act_vocab")), cache

@@ -363,17 +363,14 @@ def _moe_tp_body(x, router_w, w_gate, w_up, w_down, *, cfg: ModelConfig,
 
 def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, mctx=None
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d). Returns (y, aux). With a mesh the EP or TP body runs
-    on local shards (``models/tp.moe_ffn``). Else, where
-    ``mctx.dropless`` is set (the serving roles), the dropless layer runs
-    and aux is 0 (serving computes no loss); where ``mctx.stats`` is a
-    dict, it counts into ``stats[COUNTS]``. Otherwise the capacity body
-    runs, and the number of (token, slot) pairs it drops for want of
-    capacity is added to ``stats["moe_dropped"]`` (a device tensor, so the
-    call does not sync)."""
-    if getattr(mctx, "mesh", None) is not None:
-        from repro_torch.models.tp import moe_ffn as mesh_moe_ffn
-        return mesh_moe_ffn(p, x, cfg, mctx)
+    """x: (B, S, d), plain tensors (the mesh's blocks call
+    ``models/tp.moe_ffn``). Returns (y, aux). Where ``mctx.dropless`` is
+    set (the serving roles), the dropless layer runs and aux is 0 (serving
+    computes no loss); where ``mctx.stats`` is a dict, it counts into
+    ``stats[COUNTS]``. Otherwise the capacity body runs, and the number of
+    (token, slot) pairs it drops for want of capacity is added to
+    ``stats["moe_dropped"]`` (a device tensor, so the call does not
+    sync)."""
     e = cfg.moe
     B, S, d = x.shape
     T = B * S

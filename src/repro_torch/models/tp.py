@@ -317,9 +317,11 @@ def add(x: DTensor, y: DTensor) -> DTensor:
                               x.placements, run_check=False)
 
 
-def embed(mctx, tok_w, tokens, dtype) -> DTensor:
-    """Vocab-parallel lookup: each rank reads its rows of the table and
-    leaves zeros for the rest, a partial sum over ``model``."""
+def embed(mctx, emb: dict, tokens, dtype) -> DTensor:
+    """Vocab-parallel lookup in ``emb["tok"]``: each rank reads its rows of
+    the table and leaves zeros for the rest, a partial sum over
+    ``model``."""
+    tok_w = emb["tok"]
     V, d = tok_w.shape
     wp = wpl(mctx, ("vocab", "embed"), (V, d))
     tok_pl = _pl(mctx, ("act_batch", None), _shape(tokens))
@@ -568,7 +570,7 @@ def mlp(mctx, p: dict, h: DTensor, gated: bool = True) -> DTensor:
 
 
 def attn_block_fwd(p, x: DTensor, positions, cfg: ModelConfig, mctx, *,
-                   window: int, moe: bool, causal: bool = True,
+                   window: int, moe: bool = False, causal: bool = True,
                    use_rope: bool = True, gated: bool = True,
                    kernel: bool | None = None, q_chunk: int = 512):
     """The reference's ``_attn_block_fwd`` on the mesh: Megatron-SP, the
@@ -871,8 +873,9 @@ def mla_decode(p: dict, h: DTensor, pos: int, cache: dict, cfg: ModelConfig,
     def f(x, ckv_, kr_, *ws):
         lp = dict(zip(_MLA_KEYS, ws))
         if n_chunks == 1:
-            out, _ = attention.mla_decode(lp, x, pos, {"ckv": ckv_,
-                                                       "k_rope": kr_}, cfg)
+            pos_ = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+            out, _ = attention.mla_decode(lp, x, pos_, {"ckv": ckv_,
+                                                        "k_rope": kr_}, cfg)
             return out
         B = x.shape[0]
         positions = torch.full((B, 1), pos, device=x.device)

@@ -10,10 +10,13 @@ scans over a stack, the port loops over ``layer_views`` of it.
 Training (``loss_fn``) runs the same forward with ``collect=False`` (no
 stacked caches) and, under ``ParallelConfig.remat == "full"``, each block
 inside ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``).
-With a mesh (``MCtx.mesh``) every arch runs the blocks of ``models/tp.py``
+Each entry point (``forward_hidden``, ``encode``, ``encdec_forward``,
+``loss_fn``) picks its path once by ``MCtx.mesh``: ``PLAIN``, the blocks
+here on tensors on one device, or ``MESH``, the blocks of ``models/tp.py``
 (attention, MLA, MoE, cross-attention) and ``models/tp_recurrent.py``
 (Mamba2, mLSTM, sLSTM) on DTensors, with the reference's constraints at
-block boundaries.
+block boundaries. ``seg_forward`` runs the blocks it is given and never
+asks which path it is on.
 qwen2-vl takes precomputed ``embeds`` in place of tokens and M-RoPE
 ``positions`` (3, B, S); whisper is an encoder-decoder
 (``encdec_forward``): a bidirectional encoder over frame embeddings and a
@@ -24,7 +27,7 @@ sinusoidal positions added to their inputs.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 from torch.distributed.tensor import DTensor
@@ -216,19 +219,18 @@ def _zero_aux(x: torch.Tensor) -> torch.Tensor:
 def _attn_block_fwd(p, x, positions, cfg: ModelConfig, mctx: MCtx, *,
                     window: int, moe: bool = False, causal: bool = True,
                     use_rope: bool = True, gated: bool = True,
-                    q_chunk: int = 512):
-    """Returns (x, kv, aux)."""
-    if mctx.mesh is not None:
-        return tp.attn_block_fwd(p, x, positions, cfg, mctx, window=window,
-                                 moe=moe, causal=causal, use_rope=use_rope,
-                                 gated=gated, q_chunk=q_chunk)
+                    kernel: Optional[bool] = None, q_chunk: int = 512):
+    """Returns (x, kv, aux). ``kernel=False`` takes chunked attention
+    whatever ``attention_kernel`` says (zamba2's shared block: the
+    reference calls it without its mesh context)."""
     h = rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.attn_type == "mla":
         a, kv = mla_forward(p["attn"], h, positions, cfg, q_chunk=q_chunk)
     else:
         a, kv = attn_forward(p["attn"], h, positions, cfg, causal=causal,
                              window=window, use_rope=use_rope,
-                             q_chunk=q_chunk, mctx=mctx)
+                             q_chunk=q_chunk,
+                             mctx=None if kernel is False else mctx)
     x = x + a
     h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
     if moe:
@@ -238,39 +240,60 @@ def _attn_block_fwd(p, x, positions, cfg: ModelConfig, mctx: MCtx, *,
     return x + f, kv, aux
 
 
-def _shared_attn_fwd(sa, x, positions, cfg: ModelConfig, mctx: MCtx, *,
-                     q_chunk: int = 512):
-    """zamba2's shared attention block (one weight copy for every group).
-    The reference calls it without its mesh context, so it takes chunked
-    attention and never the flash kernel; so does the port, on a mesh
-    too."""
-    if mctx.mesh is not None:
-        x, kv, _ = tp.attn_block_fwd(sa, x, positions, cfg, mctx, window=0,
-                                     moe=False, kernel=False,
-                                     q_chunk=q_chunk)
-        return x, kv
-    h = rmsnorm(x, sa["ln1"], cfg.norm_eps)
-    a, kv = attn_forward(sa["attn"], h, positions, cfg, causal=True,
-                         q_chunk=q_chunk)
+def _cross_block_fwd(p, x, enc_out, positions, cfg: ModelConfig,
+                     mctx: MCtx, *, q_chunk: int = 512):
+    """whisper's decoder block: causal self-attention, cross-attention to
+    ``enc_out``, the ungated MLP, all without rope and chunked. Returns
+    (x, {self, cross} K/V)."""
+    h = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    a, kv = attn_forward(p["attn"], h, positions, cfg, causal=True,
+                         use_rope=False, q_chunk=q_chunk)
     x = x + a
-    x = x + mlp_apply(sa["mlp"], rmsnorm(x, sa["ln2"], cfg.norm_eps))
-    return x, kv
+    hx = rmsnorm(x, p["ln_x"], cfg.norm_eps)
+    cx, xkv = attn_forward(p["xattn"], hx, positions, cfg, causal=False,
+                           use_rope=False, x_kv=enc_out, q_chunk=q_chunk)
+    x = x + cx
+    x = x + mlp_apply(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps),
+                      gated=False)
+    return x, {"self": kv, "cross": xkv}
 
 
-def _recurrent_fwd(kind: str, forward, key: str):
-    """A residual block around a recurrent cell's forward (``kind`` names
-    it for the mesh path)."""
-    def block(p, x, cfg: ModelConfig, mctx: MCtx):
-        if mctx.mesh is not None:
-            return tp_recurrent.block_fwd(kind, p, x, cfg, mctx)
-        out, cache = forward(p[key], rmsnorm(x, p["ln"], cfg.norm_eps), cfg)
-        return x + out, cache
-    return block
+_CELL_FWD = {"mamba": ssm_forward, "mlstm": mlstm_forward,
+             "slstm": slstm_forward}
 
 
-_mamba_block_fwd = _recurrent_fwd("mamba", ssm_forward, "ssm")
-_mlstm_block_fwd = _recurrent_fwd("mlstm", mlstm_forward, "cell")
-_slstm_block_fwd = _recurrent_fwd("slstm", slstm_forward, "cell")
+def _recurrent_block_fwd(kind: str, p, x, cfg: ModelConfig, mctx: MCtx):
+    """A residual block around a recurrent cell's forward (``kind``:
+    mamba, mlstm or slstm). Returns (x, the cell's state)."""
+    out, cache = _CELL_FWD[kind](p["ssm" if kind == "mamba" else "cell"],
+                                 rmsnorm(x, p["ln"], cfg.norm_eps), cfg)
+    return x + out, cache
+
+
+@dataclasses.dataclass(frozen=True)
+class Blocks:
+    """One path's functions, in the mesh's signatures: ``PLAIN`` or
+    ``MESH``, which an entry point picks once by ``MCtx.mesh``."""
+    inputs: Callable      # (mctx, t, axes): a whole activation, placed
+    embed: Callable       # (mctx, emb, tokens, dtype)
+    norm: Callable        # (mctx, x, w, eps)
+    attn: Callable        # the attention block: (x, kv, aux)
+    recurrent: Callable   # (kind, p, x, cfg, mctx): (x, state)
+    cross: Callable       # whisper's decoder block: (x, {self, cross})
+    ce_loss: Callable     # (mctx, x, emb, labels, tied)
+
+
+PLAIN = Blocks(
+    inputs=lambda mctx, t, axes: t,
+    embed=lambda mctx, emb, tokens, dtype: embed_tokens(emb, tokens, dtype),
+    norm=lambda mctx, x, w, eps: rmsnorm(x, w, eps),
+    attn=_attn_block_fwd, recurrent=_recurrent_block_fwd,
+    cross=_cross_block_fwd,
+    ce_loss=lambda mctx, x, emb, labels, tied: chunked_ce_loss(
+        x, emb, labels, tied))
+MESH = Blocks(inputs=tp.inputs, embed=tp.embed, norm=tp.rms_norm,
+              attn=tp.attn_block_fwd, recurrent=tp_recurrent.block_fwd,
+              cross=tp.cross_block_fwd, ce_loss=tp.ce_loss)
 
 
 def _to_ring(kv: dict, window: int, S: int) -> dict:
@@ -310,14 +333,15 @@ def _apply(fn, x, p, *, collect: bool, remat: bool):
     return x, None, aux
 
 
-def seg_forward(p, x, positions, cfg: ModelConfig, mctx: MCtx, seg: Seg, *,
-                collect: bool, remat: bool = False, shared_attn=None,
-                q_chunk: int = 512):
-    """Run one segment. Returns (x, caches, aux): with ``collect`` the
-    caches are stacked like the segment's parameters ([n, ...], a group's
-    inner stack [n, sub, ...]), else None; aux is the segment's summed MoE
-    load-balancing loss (0 without MoE). ``remat`` recomputes each block in
-    the backward pass instead of keeping its activations."""
+def seg_forward(p, x, positions, cfg: ModelConfig, mctx: MCtx, seg: Seg,
+                blocks: Blocks, *, collect: bool, remat: bool = False,
+                shared_attn=None, q_chunk: int = 512):
+    """Run one segment through ``blocks``' attention and recurrent blocks.
+    Returns (x, caches, aux): with ``collect`` the caches are stacked like
+    the segment's parameters ([n, ...], a group's inner stack [n, sub,
+    ...]), else None; aux is the segment's summed MoE load-balancing loss
+    (0 without MoE). ``remat`` recomputes each block in the backward pass
+    instead of keeping its activations."""
     S = x.shape[1]
     aux = _zero_aux(x)
 
@@ -326,21 +350,20 @@ def seg_forward(p, x, positions, cfg: ModelConfig, mctx: MCtx, seg: Seg, *,
 
     def attn_blk(window, moe):
         def fn(lp, x):
-            x, kv, a = _attn_block_fwd(lp, x, positions, cfg, mctx,
-                                       window=window, moe=moe,
-                                       q_chunk=q_chunk)
+            x, kv, a = blocks.attn(lp, x, positions, cfg, mctx,
+                                   window=window, moe=moe, q_chunk=q_chunk)
             return x, (mctx.constrain_kv(_to_ring(kv, window, S))
                        if collect else None), a
         return fn
 
-    def no_aux(block):               # a block with no MoE loss
+    def cell(kind):                  # a recurrent block: no MoE loss
         def fn(lp, x):
-            return (*block(lp, x, cfg, mctx), None)
+            return (*blocks.recurrent(kind, lp, x, cfg, mctx), None)
         return fn
 
-    def shared_blk(sa, x):
-        x, kv = _shared_attn_fwd(sa, x, positions, cfg, mctx,
-                                 q_chunk=q_chunk)
+    def shared_blk(sa, x):           # zamba2's shared attention block
+        x, kv, _ = blocks.attn(sa, x, positions, cfg, mctx, window=0,
+                               kernel=False, q_chunk=q_chunk)
         return x, mctx.constrain_kv(kv) if collect else None, None
 
     if seg.n == 0:                  # a plan may leave a segment empty
@@ -363,21 +386,21 @@ def seg_forward(p, x, positions, cfg: ModelConfig, mctx: MCtx, seg: Seg, *,
         elif seg.kind == "zamba":
             mam = []
             for ll in layer_views(lp["mamba"], seg.sub):
-                x, mc, _ = run(no_aux(_mamba_block_fwd), x, ll)
+                x, mc, _ = run(cell("mamba"), x, ll)
                 mam.append(mc)
             x, kv, _ = run(shared_blk, x, shared_attn)
             c = {"mamba": _stack(mam), "attn": kv} if collect else None
         elif seg.kind == "mamba":
-            x, c, _ = run(no_aux(_mamba_block_fwd), x, lp)
+            x, c, _ = run(cell("mamba"), x, lp)
         elif seg.kind == "xlstm":
             ml = []
             for ll in layer_views(lp["mlstm"], seg.sub):
-                x, mc, _ = run(no_aux(_mlstm_block_fwd), x, ll)
+                x, mc, _ = run(cell("mlstm"), x, ll)
                 ml.append(mc)
-            x, sc, _ = run(no_aux(_slstm_block_fwd), x, lp["slstm"])
+            x, sc, _ = run(cell("slstm"), x, lp["slstm"])
             c = {"mlstm": _stack(ml), "slstm": sc} if collect else None
         elif seg.kind == "xlstm_tail":
-            x, c, _ = run(no_aux(_mlstm_block_fwd), x, lp)
+            x, c, _ = run(cell("mlstm"), x, lp)
         else:
             raise ValueError(seg.kind)
         caches.append(c)
@@ -396,22 +419,6 @@ def _empty_caches(cfg: ModelConfig, seg: Seg, B: int, S: int, device):
 # --------------------------------------------------------------------------
 # Top-level forward
 # --------------------------------------------------------------------------
-
-
-def _input_hidden(params, cfg: ModelConfig, batch: dict,
-                  dtype: torch.dtype, mctx: Optional[MCtx] = None
-                  ) -> torch.Tensor:
-    """The stub frontend's ``embeds`` where the batch has them, else the
-    tokens' embeddings (on a mesh, a DTensor partial over ``model``)."""
-    mesh = mctx is not None and mctx.mesh is not None
-    if cfg.frontend in ("vision", "audio") and "embeds" in batch:
-        if mesh:
-            return tp.inputs(mctx, batch["embeds"].to(dtype),
-                             ("act_batch", None, None))
-        return batch["embeds"].to(dtype)
-    if mesh:
-        return tp.embed(mctx, params["embed"]["tok"], batch["tokens"], dtype)
-    return embed_tokens(params["embed"], batch["tokens"], dtype)
 
 
 def _arange_positions(B: int, S: int, device) -> torch.Tensor:
@@ -442,25 +449,27 @@ def forward_hidden(params, cfg: ModelConfig, mctx: MCtx, batch: dict, *,
     S) for M-RoPE); without them positions run ``arange(S)`` for every
     row. There is no padding mask, as in the reference.
     """
-    plan = segment_plan(cfg)
-    x = _input_hidden(params, cfg, batch, torch_dtype(cfg.dtype), mctx)
+    blocks = MESH if mctx.mesh is not None else PLAIN
+    dtype = torch_dtype(cfg.dtype)
+    if cfg.frontend in ("vision", "audio") and "embeds" in batch:
+        x = blocks.inputs(mctx, batch["embeds"].to(dtype),
+                          ("act_batch", None, None))
+    else:
+        x = blocks.embed(mctx, params["embed"], batch["tokens"], dtype)
     B, S = x.shape[:2]
     positions = _positions(cfg, batch, B, S, x.device)
     x = mctx.constrain(x, ("act_batch", "act_seq", "act_embed"))
     caches: dict[str, Optional[Any]] = {}
     aux = _zero_aux(x)
     shared = params.get("shared_attn")
-    for seg in plan:
+    for seg in segment_plan(cfg):
         x, c, a = seg_forward(params[seg.name], x, positions, cfg, mctx, seg,
-                              collect=collect, remat=remat,
+                              blocks, collect=collect, remat=remat,
                               shared_attn=shared, q_chunk=q_chunk)
         x = mctx.constrain(x, ("act_batch", "act_seq", "act_embed"))
         caches[seg.name] = c
         aux = aux + a
-    if mctx.mesh is not None:
-        x = tp.rms_norm(mctx, x, params["final_norm"], cfg.norm_eps)
-    else:
-        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    x = blocks.norm(mctx, x, params["final_norm"], cfg.norm_eps)
     return x, caches, aux
 
 
@@ -468,8 +477,6 @@ def _with_positions(x, pe: torch.Tensor, mctx: MCtx):
     """``x`` (B, S, d) plus fixed positions ``pe`` (S, d); on a mesh ``x``
     is placed with its sequence and width whole first (a partial sum
     reduced)."""
-    if mctx.mesh is None:
-        return x + pe
     x = mctx.constrain(x, ("act_batch", None, None))
     return tp.map_local(lambda t: t + pe, x)
 
@@ -481,26 +488,22 @@ def encode(params, cfg: ModelConfig, mctx: MCtx, frames: torch.Tensor, *,
     flash kernel's path under ``attention_kernel="kernel"``), then
     ``enc_norm``. On a mesh the output is whole in the sequence and width
     (the layout cross-attention's K/V projections read)."""
+    blocks = MESH if mctx.mesh is not None else PLAIN
     dtype = torch_dtype(cfg.dtype)
-    frames = frames.to(dtype)
+    frames = blocks.inputs(mctx, frames.to(dtype), ("act_batch", None, None))
     B, S_enc = frames.shape[:2]
     dev = frames.device
     pe = sinusoidal_pos_emb(torch.arange(S_enc, device=dev),
                             cfg.d_model).to(dtype)
-    if mctx.mesh is not None:
-        frames = tp.inputs(mctx, frames, ("act_batch", None, None))
     x = _with_positions(frames, pe, mctx)
     pos = _arange_positions(B, S_enc, dev)
 
     def block(lp, x):
-        return _attn_block_fwd(lp, x, pos, cfg, mctx, window=0,
-                               causal=False, use_rope=False, gated=False,
-                               q_chunk=q_chunk)
+        return blocks.attn(lp, x, pos, cfg, mctx, window=0, causal=False,
+                           use_rope=False, gated=False, q_chunk=q_chunk)
     for lp in layer_views(params["encoder"], cfg.num_encoder_layers):
         x, _, _ = _apply(block, x, lp, collect=False, remat=remat)
-    if mctx.mesh is None:
-        return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
-    return mctx.constrain(tp.rms_norm(mctx, x, params["enc_norm"],
+    return mctx.constrain(blocks.norm(mctx, x, params["enc_norm"],
                                       cfg.norm_eps),
                           ("act_batch", None, None))
 
@@ -513,48 +516,28 @@ def encdec_forward(params, cfg: ModelConfig, mctx: MCtx, batch: dict, *,
     ``collect`` the decoder's stacked {self, cross} K/V, else None. The
     decoder's attention takes chunked attention on every path, as the
     reference's (which calls it without its mesh context)."""
+    blocks = MESH if mctx.mesh is not None else PLAIN
     enc_out = encode(params, cfg, mctx, batch["frames"], remat=remat,
                      q_chunk=q_chunk)
     dtype = torch_dtype(cfg.dtype)
     tokens = batch["tokens"]
     B, S_dec = tokens.shape
     dev = enc_out.device
-    mesh = mctx.mesh is not None
-    if mesh:
-        x = tp.embed(mctx, params["embed"]["tok"], tokens, dtype)
-    else:
-        x = embed_tokens(params["embed"], tokens, dtype)
+    x = blocks.embed(mctx, params["embed"], tokens, dtype)
     x = _with_positions(x, sinusoidal_pos_emb(
         torch.arange(S_dec, device=dev), cfg.d_model).to(dtype), mctx)
     dec_pos = _arange_positions(B, S_dec, dev)
-    enc_pos = _arange_positions(B, enc_out.shape[1], dev)
     zero = _zero_aux(x)
 
     def block(lp, x):
-        if mesh:
-            x, kv = tp.cross_block_fwd(lp, x, enc_out, dec_pos, cfg, mctx,
-                                       q_chunk=q_chunk)
-            return x, kv, zero
-        h = rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        a, kv = attn_forward(lp["attn"], h, dec_pos, cfg, causal=True,
-                             use_rope=False, q_chunk=q_chunk)
-        x = x + a
-        hx = rmsnorm(x, lp["ln_x"], cfg.norm_eps)
-        cx, xkv = attn_forward(lp["xattn"], hx, dec_pos, cfg, causal=False,
-                               use_rope=False, x_kv=enc_out,
-                               kv_positions=enc_pos, q_chunk=q_chunk)
-        x = x + cx
-        x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"], cfg.norm_eps),
-                          gated=False)
-        return x, {"self": kv, "cross": xkv}, zero
+        x, kv = blocks.cross(lp, x, enc_out, dec_pos, cfg, mctx,
+                             q_chunk=q_chunk)
+        return x, kv, zero
     caches = []
     for lp in layer_views(params["decoder"], cfg.num_layers):
         x, c, _ = _apply(block, x, lp, collect=collect, remat=remat)
         caches.append(c)
-    if mesh:
-        x = tp.rms_norm(mctx, x, params["final_norm"], cfg.norm_eps)
-    else:
-        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    x = blocks.norm(mctx, x, params["final_norm"], cfg.norm_eps)
     return x, (_stack(caches) if collect else None), zero
 
 
@@ -568,14 +551,11 @@ def loss_fn(params, cfg: ModelConfig, mctx: MCtx, batch: dict,
         raise ValueError("attention_kernel='kernel' has no backward pass "
                          "(neither has the reference's Pallas kernel); "
                          "training takes attention_kernel='eager'")
+    blocks = MESH if mctx.mesh is not None else PLAIN
     remat = mctx.parallel.remat != "none"
     forward = encdec_forward if cfg.encoder_decoder else forward_hidden
     x, _, aux = forward(params, cfg, mctx, batch, remat=remat,
                         q_chunk=q_chunk)
-    if mctx.mesh is not None:
-        ce = tp.ce_loss(mctx, x, params["embed"], batch["labels"],
+    ce = blocks.ce_loss(mctx, x, params["embed"], batch["labels"],
                         cfg.tie_embeddings)
-    else:
-        ce = chunked_ce_loss(x, params["embed"], batch["labels"],
-                             cfg.tie_embeddings)
     return ce + aux_coef * aux, {"ce": ce, "aux": aux}

@@ -69,6 +69,17 @@ def _status(err: str) -> list:
             for ln in err.splitlines() if ln.startswith(keep)]
 
 
+def _no_reruns(row: str) -> str:
+    """``row`` without the ``;n_reruns=N`` that ``Row.csv`` adds only when
+    the noise guard remeasured (a timing on a loaded host may, on either
+    side); N, where present, is 1 or 2 (``time_fn_stats``' max_reruns)."""
+    head, sep, n = row.rpartition(";n_reruns=")
+    if not sep:
+        return row
+    assert n in ("1", "2"), row
+    return head
+
+
 def test_family_tables_match_reference(ref):
     want, got = ref._families(), port._families()
     assert list(got) == list(want)
@@ -116,7 +127,7 @@ def test_kv_quant_family_and_json_match_reference(ref, monkeypatch, capsys,
     for w, g in zip(rows_w, rows_g):
         if w.startswith("kv_quant_kernel/"):
             g = g.replace(";device=cpu", "")
-            assert _shape(g) == _shape(w)
+            assert _shape(_no_reruns(g)) == _shape(_no_reruns(w))
         else:
             assert g == w
     assert json.loads(b.read_text()) == json.loads(a.read_text())

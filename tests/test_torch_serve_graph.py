@@ -1,9 +1,10 @@
 """The decode step as one CUDA graph: its position as a device tensor,
 when the engine replays a graph, and the replay against the eager path.
 
-On the CPU: GQA attention's decode with its position as a one-element
-int64 tensor (``models/attention.attn_decode``) against the int-position
-step it replaced, kept here as ``_attn_decode_int``, bit for bit in the
+On the CPU: GQA attention's and MLA's decode with the position as a
+one-element int64 tensor (``models/attention.attn_decode`` and
+``mla_decode``) against the int-position steps they replaced, kept here
+as ``_attn_decode_int`` and ``_mla_decode_int``, bit for bit in the
 logits and every cache leaf; the engagement predicate over the ten archs
 and three placements; CPU and offloaded engines that never capture. On a
 card (``gpu``, skipped without one): the replayed tokens against the eager
@@ -26,7 +27,8 @@ from repro_torch import kernels
 from repro_torch.config.base import get_config, list_archs
 from repro_torch.launch import serve
 from repro_torch.models import decode as decode_mod
-from repro_torch.models.attention import (_out_proj, _project_qkv,
+from repro_torch.models.attention import (NEG_INF, _mla_latents, _mla_q,
+                                          _out_proj, _project_qkv,
                                           decode_attention)
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.model import Model
@@ -58,10 +60,37 @@ def _attn_decode_int(p, x, pos: int, cache, cfg, *, window=0,
     return _out_proj(ctx, p["w_o"]), cache
 
 
+def _mla_decode_int(p, x, pos: int, cache, cfg):
+    """``mla_decode`` as it was with an int position."""
+    m = cfg.mla
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, positions, cfg)
+    ckv_new, krope_new = _mla_latents(p, x, positions, cfg)
+    ckv, k_rope = cache["ckv"], cache["k_rope"]
+    ckv[:, pos] = ckv_new[:, 0].to(ckv.dtype)
+    k_rope[:, pos] = krope_new[:, 0].to(k_rope.dtype)
+    S = ckv.shape[1]
+    q_abs = torch.einsum("bshk,rhk->bshr", q_nope, p["w_uk"].to(x.dtype))
+    scores = (torch.einsum("bshr,bkr->bhsk", q_abs.float(), ckv.float())
+              + torch.einsum("bshr,bkr->bhsk", q_rope.float(),
+                             k_rope.float()))
+    scores = scores * (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    valid = torch.arange(S, device=x.device) <= pos
+    scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
+    pr = torch.softmax(scores, dim=-1)
+    ctx_lat = torch.einsum("bhsk,bkr->bshr", pr, ckv.float())
+    out_h = torch.einsum("bshr,rhv->bshv", ctx_lat.to(x.dtype),
+                         p["w_uv"].to(x.dtype))
+    return _out_proj(out_h, p["w_o"]), cache
+
+
 # (arch, reduced() overrides): gemma3 at 8 layers holds a whole
 # local:global group beside its tail; mixtral's window makes ring caches
-POSITION_ARCHS = [("yi-9b", {}), ("gemma3-27b", {"num_layers": 8}),
-                  ("mixtral-8x22b", {}), ("qwen2-vl-72b", {})]
+GRAPH_ARCHS = [("yi-9b", {}), ("gemma3-27b", {"num_layers": 8}),
+               ("mixtral-8x22b", {}), ("qwen2-vl-72b", {})]
+# and deepseek-v3's MLA, whose step no graph replays yet
+POSITION_ARCHS = GRAPH_ARCHS + [("deepseek-v3-671b", {})]
 
 
 def _model_and_cache(arch, overrides, dtype):
@@ -99,8 +128,12 @@ def test_tensor_position_step_equals_int_step(arch, overrides, dtype,
             got[given] = (model.decode(params, c, tok, pos)[0], c)
         monkeypatch.setattr(
             decode_mod, "attn_decode",
-            lambda p, x, pos_t, c, cfg, **kw: _attn_decode_int(
-                p, x, int(pos_t), c, cfg, **kw))
+            lambda p, x, pos, c, cfg, **kw: _attn_decode_int(
+                p, x, int(pos), c, cfg, **kw))
+        monkeypatch.setattr(
+            decode_mod, "mla_decode",
+            lambda p, x, pos, c, cfg: _mla_decode_int(p, x, int(pos), c,
+                                                      cfg))
         c = _copy(cache)
         want = (model.decode(params, c, tok, POS)[0], c)
     for given, (logits, c) in got.items():
@@ -209,8 +242,8 @@ def _counts(engine):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch,overrides", POSITION_ARCHS,
-                         ids=[a for a, _ in POSITION_ARCHS])
+@pytest.mark.parametrize("arch,overrides", GRAPH_ARCHS,
+                         ids=[a for a, _ in GRAPH_ARCHS])
 def test_graph_tokens_equal_eager_tokens_on_card(arch, overrides):
     """yi-9b, gemma3's rings past their window (prompts of 30 and 8
     steps: positions 30-37 in a 32-slot ring), mixtral's MoE and

@@ -185,7 +185,7 @@ def test_mla_prefill_and_absorbed_decode_match_reference():
         jy, jcache = jattn.mla_decode(jp, jnp.asarray(x[:, s:s + 1]), s,
                                       jcache, jcfg)
         y, cache = attention.mla_decode(p, torch.from_numpy(x[:, s:s + 1]),
-                                        s, cache, cfg)
+                                        torch.tensor([s]), cache, cfg)
         _close(y, jy, TOL_PAR, f"mla_decode {s}")
         _assert_tree(cache, jcache, TOL_PAR, f"mla cache {s}")
 
