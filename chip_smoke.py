@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only models         # the model zoo
     python3 chip_smoke.py --only kernel         # K1's holds and timing
     python3 chip_smoke.py --only decode_kernel  # K8's holds and timing
+    python3 chip_smoke.py --only norm_rope_kernel  # K9's and K10's
     python3 chip_smoke.py --only serve,mesh,dryrun  # the mesh path, dry-run
     python3 chip_smoke.py --only heimdall,tooling   # the runner, examples
 
@@ -19,7 +20,8 @@ while the host has the most memory to pin):
   device         the card (nvidia-smi name and power limit), torch and CUDA
                  versions
   build          every kernel family's library (flash attention, paged
-                 attention, quant, probes, decode attention) compiled by
+                 attention, quant, probes, decode attention, norm and
+                 rope) compiled by
                  nvcc for sm_90a from the repo's .cu sources, all at once;
                  seconds and ptxas register/spill lines for each, and the
                  tensor-core (HMMA) instructions in each paged attention
@@ -64,6 +66,12 @@ while the host has the most memory to pin):
                  and device time, inputs cold: a rotation of distinct
                  caches, twice the L2 together) beside the plain version's
                  and the byte bound
+  norm_rope_kernel  K9 (RMS norm, alone and with its residual add) and K10
+                 (rope on q and k) against their plain versions at yi-9b's
+                 and mixtral-8x22b's prefill and decode shapes in bf16
+                 (rope and the sum bit for bit), one launch a call; their
+                 device times with the inputs cold beside the plain
+                 versions' and the byte bounds
   paged_kernels  K2 and K3 (paged attention, fp and int8) against their
                  plain versions over the test sweeps, the split kernel's
                  edge cases (a zero-length row, rows shorter than one split,
@@ -965,6 +973,98 @@ def phase_decode_kernel() -> dict:
     return out
 
 
+# K9 / K10 at the HBM cells' shapes: (B, S, d, Hq, Hkv, head dim) of a
+# prefill (64 prompts of 512 tokens) and of a decode step (64 tokens, at
+# position 530)
+NORM_ROPE_SHAPES = {"yi-9b_prefill": (64, 512, 4096, 32, 4, 128),
+                    "yi-9b_decode": (64, 1, 4096, 32, 4, 128),
+                    "mixtral-8x22b_prefill": (64, 512, 6144, 48, 8, 128),
+                    "mixtral-8x22b_decode": (64, 1, 6144, 48, 8, 128)}
+
+
+def phase_norm_rope_kernel() -> dict:
+    """K9 (the norm alone and with its residual add) and K10 (rope on q
+    and k) against their plain versions at the HBM cells' prefill and
+    decode shapes in bf16, one launch a call; each one's device time with
+    its inputs cold (a rotation of distinct inputs, twice the L2 together)
+    beside the plain version's and its byte bound."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.kernels import norm_rope
+    from repro_torch.models.layers import _rope_freqs
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def randn(*dims):
+        return torch.randn(*dims, generator=gen, device="cuda").bfloat16()
+
+    cases, timing = [], {}
+    for name, (B, S, d, Hq, Hkv, D) in NORM_ROPE_SHAPES.items():
+        T = B * S
+        freqs = _rope_freqs(D // 2, 1e4, torch.device("cuda"))
+        pos = (torch.arange(S, device="cuda")[None].expand(B, S) if S > 1
+               else torch.tensor([530], device="cuda").expand(B, 1))
+
+        def norm_set():
+            return randn(T, d), randn(T, d), randn(d)
+
+        def rope_set():
+            return randn(B, S, Hq, D), randn(B, S, Hkv, D)
+        calls = {
+            "rmsnorm": (norm_set, lambda x, a, w: norm_rope.rmsnorm(x, w),
+                        lambda x, a, w: norm_rope.rmsnorm_ref(x, w, 1e-6),
+                        2 * T * d * 2),
+            "add_rmsnorm": (norm_set,
+                            lambda x, a, w: norm_rope.add_rmsnorm(x, a, w),
+                            lambda x, a, w: norm_rope.add_rmsnorm_ref(
+                                x, a, w, 1e-6), 4 * T * d * 2),
+            "rope": (rope_set,
+                     lambda q, k: norm_rope.rope(q, k, pos, freqs, []),
+                     lambda q, k: norm_rope.rope_ref(q, k, pos, freqs, []),
+                     2 * T * (Hq + Hkv) * D * 2)}
+        for kname, (make, kern, plain, nbytes) in calls.items():
+            args = make()
+            before = kernels.LAUNCHES[kname]
+            got = kern(*args)
+            launches = kernels.LAUNCHES[kname] - before
+            want = plain(*args)
+            torch.cuda.synchronize()
+            got = got if isinstance(got, (tuple, list)) else [got]
+            want = want if isinstance(want, (tuple, list)) else [want]
+            equal = all(torch.equal(g, w) for g, w in zip(got, want))
+            diff = max(((g.float() - w.float()).abs()
+                        / w.float().abs().clamp_min(1e-30)).max().item()
+                        for g, w in zip(got, want))
+            ok = launches == 1 and (equal or (kname != "rope"
+                                              and diff <= 2 ** -7))
+            cases.append({"shape": name, "kernel": kname, "bit_equal": equal,
+                          "max_rel_diff": diff, "launches": launches,
+                          "ok": ok})
+            del got, want
+            sets = [args] + [make() for _ in range(cold_sets(nbytes) - 1)]
+            k_rot = rotation([functools.partial(kern, *a) for a in sets])
+            p_rot = rotation([functools.partial(plain, *a) for a in sets])
+            dev = device_ms_per_call(k_rot)["ms"]
+            plain_dev = device_ms_per_call(p_rot, iters=6, warmup=1,
+                                           kernels_per_call=None)["ms"]
+            b = bound(nbytes)
+            timing[f"{name}/{kname}"] = {
+                "cold_sets": len(sets), "kernel_device_ms": dev,
+                "kernel_ms": cuda_ms(k_rot), "plain_device_ms": plain_dev,
+                "bound_us": b["bound_us"], "bytes": b["bytes"],
+                "bound_share_device": ratio(b["bound_us"] / 1e3, dev),
+                "plain_over_kernel": ratio(plain_dev, dev)}
+            del sets, k_rot, p_rot, args
+            torch.cuda.empty_cache()
+    out = {"phase": "norm_rope_kernel", "cases": cases,
+           "timing_bf16": timing}
+    emit(out)
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"norm_rope disagrees with its plain "
+                             f"versions: {bad}")
+    return out
+
+
 def bound(nbytes: float, flops: float = 0.0,
           peak: float = PEAK_FLOPS["float32"]) -> dict:
     """Least time for a call that must move ``nbytes`` and do ``flops``
@@ -1631,19 +1731,32 @@ def greedy_run(model, params, batch: dict, gen: int) -> dict:
 
 
 @contextlib.contextmanager
-def plain_decode_attention():
-    """The model's GQA decode steps with the plain decode attention (the
-    arithmetic the mesh path keeps) in place of K8, for a reference run."""
+def mesh_arithmetic():
+    """The plain path's steps with the arithmetic the mesh path keeps, for
+    a reference run: the plain decode attention in place of K8, and the
+    plain norm and rope chains in place of K9 and K10."""
+    from repro_torch.kernels import norm_rope
     from repro_torch.kernels.decode_attention import (
         dense_decode_attention_ref)
     from repro_torch.models import attention
     kernel = attention.dense_decode_attention
+    fused = {n: getattr(norm_rope, n) for n in ("rmsnorm", "add_rmsnorm",
+                                                  "rope")}
     attention.dense_decode_attention = (
         lambda q, k, v, pos=None: dense_decode_attention_ref(q, k, v, pos))
+    norm_rope.rmsnorm = norm_rope.rmsnorm_ref
+    norm_rope.add_rmsnorm = norm_rope.add_rmsnorm_ref
+
+    def rope(q, k, positions, freqs, sections):
+        out = norm_rope.rope_ref(q, k, positions, freqs, sections)
+        return out[0], (out[1] if k is not None else None)
+    norm_rope.rope = rope
     try:
         yield
     finally:
         attention.dense_decode_attention = kernel
+        for n, f in fused.items():
+            setattr(norm_rope, n, f)
 
 
 def phase_mesh(serve=None) -> dict:
@@ -1692,7 +1805,7 @@ def phase_mesh(serve=None) -> dict:
             plain_run = greedy_run(plain, params, batch, GEN)
             # the mesh path's arithmetic without the mesh: its tokens must
             # match bit for bit (K8's differ by rounding at near-ties)
-            with plain_decode_attention():
+            with mesh_arithmetic():
                 same = np.stack(greedy_run(plain, params, batch,
                                            GEN)["tokens"], axis=1)
             kernels.reset_launches()
@@ -3484,7 +3597,10 @@ def mesh_rerun(cfg, params, prompt, warm, generate, profile,
     profiled prefill and MESH_PROFILED decode steps, then ``hold`` on the
     mesh model where given. Checks: every leaf a DTensor over the plain
     leaf's storage, a second plain run equal to the first bit for bit
-    (else the mesh's equality below would hold by chance), tokens equal,
+    (else the mesh's equality below would hold by chance), tokens equal
+    (both paths with the plain norm, rope and decode attention,
+    ``mesh_arithmetic``: the mesh's MLA borrows the plain path's
+    functions),
     the held tensors within LOGITS_REL_L2, exactly ``k1`` K1 launches.
     The mesh bodies keep the capacity MoE layer, so the plain path here
     serves with it too (``serve_mctx`` is the model's own context), not
@@ -3515,14 +3631,15 @@ def mesh_rerun(cfg, params, prompt, warm, generate, profile,
         mparams = model.params
         stage = [time.perf_counter()]
         with torch.inference_mode():
-            generate(plain, params, warm, 2)
-            generate(model, mparams, warm, 2)
-            stage.append(time.perf_counter())
-            plain_run = generate(plain, params, prompt, MESH_STEPS)
-            again = generate(plain, params, prompt, MESH_STEPS)
-            kernels.reset_launches()
-            mesh_run = generate(model, mparams, prompt, MESH_STEPS)
-            launches = dict(kernels.LAUNCHES)
+            with mesh_arithmetic():
+                generate(plain, params, warm, 2)
+                generate(model, mparams, warm, 2)
+                stage.append(time.perf_counter())
+                plain_run = generate(plain, params, prompt, MESH_STEPS)
+                again = generate(plain, params, prompt, MESH_STEPS)
+                kernels.reset_launches()
+                mesh_run = generate(model, mparams, prompt, MESH_STEPS)
+                launches = dict(kernels.LAUNCHES)
             stage.append(time.perf_counter())
             times = {name: profile(m, p, prompt, MESH_PROFILED)
                      for name, m, p in (("plain", plain, params),
@@ -4724,6 +4841,7 @@ def phase_all() -> None:
         phase_train_resume()
     kern = phase_kernel()
     phase_decode_kernel()
+    phase_norm_rope_kernel()
     paged = phase_paged_kernels()
     serve = phase_serve()
     mesh = phase_mesh(serve)
@@ -4768,6 +4886,7 @@ ONLY = {"serve": phase_serve, "serve_offload": phase_serve_offload,
         "degrade": phase_degrade, "disagg": phase_disagg,
         "heimdall": phase_heimdall, "models": phase_models,
         "kernel": phase_kernel, "decode_kernel": phase_decode_kernel,
+        "norm_rope_kernel": phase_norm_rope_kernel,
         "tooling": phase_tooling}
 
 

@@ -42,7 +42,8 @@ FAMILIES = {"flash_attention": ("flash_attention",),
                       "dequantize"),
             "probes": ("pointer_chase", "tier_sum", "tier_scatter_add",
                        "tier_copy"),
-            "decode_attention": ("decode_attention",)}
+            "decode_attention": ("decode_attention",),
+            "norm_rope": ("rmsnorm", "add_rmsnorm", "rope")}
 LAUNCHES: dict[str, int] = {k: 0 for ks in FAMILIES.values() for k in ks}
 LAUNCHES["flash_attention_windowed"] = 0    # of K1's, those with window > 0
 

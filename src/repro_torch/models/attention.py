@@ -19,7 +19,9 @@ decoder attends to its encoder's output through cross-attention: in
 prefill through chunked attention (the flash kernel's gate wants as many
 keys as queries, as the reference's does), in decode against the cross
 K/V cached by prefill (``attn_decode_cross``). qwen2-vl turns q and k by
-M-RoPE (``cfg.mrope``: positions (3, B, S)).
+M-RoPE (``cfg.mrope``: positions (3, B, S)). q and k are turned by one
+``layers.rope`` call: the hand-written rope kernel where no gradient is
+recorded, the plain chain where one is.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from repro_torch.kernels.decode_attention import dense_decode_attention
 from repro_torch.kernels.decode_attention.ref import (  # noqa: F401
     NEG_INF, _gqa_ctx, _gqa_scores, decode_attention)
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models.layers import apply_rope, rmsnorm, rmsnorm_spec
+from repro_torch.models.layers import rmsnorm, rmsnorm_spec, rope
 from repro_torch.models.params import ParamSpec
 
 
@@ -149,10 +151,12 @@ def attn_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
     holds the rope'd k/v for cache construction. Without ``mctx`` it takes
     chunked attention, as the reference does."""
     q, k, v = _project_qkv(p, x, x_kv)
-    if use_rope:
-        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
+    if use_rope and kv_positions is None and k.shape[:2] == q.shape[:2]:
+        q, k = rope(q, k, positions, cfg.rope_theta, cfg.mrope)
+    elif use_rope:
         kp = positions if kv_positions is None else kv_positions
-        k = apply_rope(k, kp, cfg.rope_theta, cfg.mrope)
+        q = rope(q, None, positions, cfg.rope_theta, cfg.mrope)[0]
+        k = rope(k, None, kp, cfg.rope_theta, cfg.mrope)[0]
     if (mctx is not None
             and mctx.parallel.attention_kernel == "kernel"
             and q.shape[1] == k.shape[1]):
@@ -186,8 +190,7 @@ def attn_decode(p: dict, x: torch.Tensor, pos: torch.Tensor, cache: dict,
         positions = pos.expand(x.shape[0], 1)
         if cfg.mrope:
             positions = positions.expand(3, *positions.shape)
-        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope)
-        k_new = apply_rope(k_new, positions, cfg.rope_theta, cfg.mrope)
+        q, k_new = rope(q, k_new, positions, cfg.rope_theta, cfg.mrope)
     k_cache, v_cache = cache["k"], cache["v"]
     S = k_cache.shape[1]
     slot = pos % S if window > 0 else pos
@@ -240,16 +243,16 @@ def _mla_q(p: dict, x: torch.Tensor, positions: torch.Tensor,
     cq = rmsnorm(x @ p["w_dq"].to(x.dtype), p["q_norm"], cfg.norm_eps)
     q = _proj_heads(cq, p["w_uq"])
     q_nope = q[..., :m.qk_nope_head_dim]
-    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
-                        cfg.rope_theta)
+    q_rope = rope(q[..., m.qk_nope_head_dim:], None, positions,
+                  cfg.rope_theta)[0]
     return q_nope, q_rope
 
 
 def _mla_latents(p: dict, x: torch.Tensor, positions: torch.Tensor,
                  cfg: ModelConfig):
     ckv = rmsnorm(x @ p["w_dkv"].to(x.dtype), p["kv_norm"], cfg.norm_eps)
-    k_rope = apply_rope((x @ p["w_kr"].to(x.dtype))[:, :, None, :],
-                        positions, cfg.rope_theta)[:, :, 0, :]
+    k_rope = rope((x @ p["w_kr"].to(x.dtype))[:, :, None, :], None,
+                  positions, cfg.rope_theta)[0][:, :, 0, :]
     return ckv, k_rope
 
 

@@ -43,7 +43,7 @@ from repro_torch.models import kvcache, tp, tp_recurrent, transformer
 from repro_torch.models.attention import (_proj_heads, attn_decode,
                                           attn_decode_cross, mla_decode)
 from repro_torch.models.context import MCtx
-from repro_torch.models.layers import (mlp_apply, rmsnorm,
+from repro_torch.models.layers import (add_rmsnorm, mlp_apply, rmsnorm,
                                        sinusoidal_pos_emb, unembed)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.params import (map_specs, stack_specs, torch_dtype,
@@ -90,8 +90,7 @@ def _attn_block_dec(p, x, pos: torch.Tensor, cache, cfg, mctx, *, window,
         a, _ = mla_decode(p["attn"], h, pos, cache, cfg)
     else:
         a, _ = attn_decode(p["attn"], h, pos, cache, cfg, window=window)
-    x = x + a
-    h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    x, h2 = add_rmsnorm(x, a, p["ln2"], cfg.norm_eps)
     if moe:
         f, _ = moe_ffn(p["moe"], h2, cfg, mctx)
     else:

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+from typing import Optional
 
 import numpy as np
 import torch
@@ -9,6 +10,9 @@ import torch.nn.functional as F
 from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.config.base import ModelConfig
+from repro_torch.kernels import norm_rope
+from repro_torch.kernels.norm_rope.ref import (add_rmsnorm_ref, rmsnorm_ref,
+                                               rope_ref)
 from repro_torch.models.params import ParamSpec
 
 
@@ -21,14 +25,31 @@ def rmsnorm_spec(d: int) -> ParamSpec:
     return ParamSpec((d,), (None,), init="ones")
 
 
+def _records_grad(*ts: Optional[torch.Tensor]) -> bool:
+    """Is a gradient being recorded through any of ``ts``? The norm and
+    rope kernels have no backward: training (and remat's recompute) keeps
+    the plain chains, serving (under ``torch.inference_mode``) takes the
+    kernels."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
             ) -> torch.Tensor:
-    """Computed in fp32, cast back to x's dtype."""
-    dtype = x.dtype
-    x = x.float()
-    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
-    x = x * torch.rsqrt(var + eps)
-    return (x * w.float()).to(dtype)
+    """Computed in fp32, cast back to x's dtype: K9 where no gradient is
+    recorded (its plain version on the CPU), else the plain chain."""
+    if _records_grad(x, w):
+        return rmsnorm_ref(x, w, eps)
+    return norm_rope.rmsnorm(x, w, eps)
+
+
+def add_rmsnorm(x: torch.Tensor, a: torch.Tensor, w: torch.Tensor,
+                eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """``s = x + a; (s, rmsnorm(s, w, eps))``, as one K9 launch where no
+    gradient is recorded."""
+    if _records_grad(x, a, w):
+        return add_rmsnorm_ref(x, a, w, eps)
+    return norm_rope.add_rmsnorm(x, a, w, eps)
 
 
 # --------------------------------------------------------------------------
@@ -59,13 +80,6 @@ def _rope_freqs(dim_half: int, theta: float, device: torch.device
     return _FREQS[key]
 
 
-def _rope_angles(positions: torch.Tensor, dim_half: int, theta: float
-                 ) -> torch.Tensor:
-    """positions: (..., S) -> fp32 angles (..., S, dim_half)."""
-    return positions[..., None].float() * _rope_freqs(dim_half, theta,
-                                                      positions.device)
-
-
 def mrope_sections(half: int) -> list[int]:
     """``MROPE_SECTIONS`` rescaled to ``half`` frequencies in integer
     arithmetic, the last section taking the remainder (16 -> 2, 3, 3)."""
@@ -75,35 +89,34 @@ def mrope_sections(half: int) -> list[int]:
     return secs
 
 
-def _mrope_angles(positions: torch.Tensor, half: int, theta: float
-                  ) -> torch.Tensor:
-    """positions: (3, B, S) -> fp32 angles (B, S, half): each section of
-    the frequencies turns with its own axis (t, h, w). The sections'
-    frequencies are RoPE's, cut in three, so equal rows give RoPE."""
+def rope(q: torch.Tensor, k: Optional[torch.Tensor], positions: torch.Tensor,
+         theta: float, mrope: bool = False
+         ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """q (B, S, Hq, Dh) and k (B, S, Hkv, Dh), or None, turned at
+    ``positions`` (B, S), or (3, B, S) with ``mrope``: split halves, not
+    interleaved pairs; angles and the rotation in fp32, cast back to the
+    inputs' dtype. One K10 launch for both where no gradient is recorded
+    (its plain version on the CPU), else the plain chain. With M-RoPE each
+    section of the frequencies turns with its own axis (t, h, w); the
+    sections' frequencies are RoPE's, cut in three, so equal rows give
+    RoPE."""
+    half = q.shape[-1] // 2
     freqs = _rope_freqs(half, theta, positions.device)
-    parts, off = [], 0
-    for row, sec in enumerate(mrope_sections(half)):
-        parts.append(positions[row][..., None].float()
-                     * freqs[off:off + sec])
-        off += sec
-    return torch.cat(parts, dim=-1)
+    sections = mrope_sections(half) if mrope else []
+    if _records_grad(q, k):
+        out = rope_ref(q, k, positions, freqs, sections)
+        return out[0], (out[1] if k is not None else None)
+    return norm_rope.rope(q, k, positions, freqs, sections)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                mrope: bool = False) -> torch.Tensor:
-    """x: (B, S, H, Dh). positions: (B, S), or (3, B, S) with ``mrope``.
-    Split halves, not interleaved pairs; angles and the rotation in fp32,
-    cast back to x's dtype."""
+    """x (B, S, H, Dh) turned by the plain chain (``rope``'s plain
+    version), on any device: the mesh path's rope."""
     half = x.shape[-1] // 2
-    if mrope:
-        angles = _mrope_angles(positions, half, theta)     # (B, S, half)
-    else:
-        angles = _rope_angles(positions, half, theta)      # (B, S, half)
-    cos = torch.cos(angles)[..., None, :]                  # (B, S, 1, half)
-    sin = torch.sin(angles)[..., None, :]
-    x1, x2 = x[..., :half], x[..., half:]
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    freqs = _rope_freqs(half, theta, positions.device)
+    return rope_ref(x, None, positions, freqs,
+                    mrope_sections(half) if mrope else [])[0]
 
 
 def sinusoidal_pos_emb(positions: torch.Tensor, d: int) -> torch.Tensor:

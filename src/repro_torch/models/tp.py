@@ -48,13 +48,14 @@ from torch.utils._python_dispatch import _disable_current_modes
 
 from repro_torch.config.base import ModelConfig, ParallelConfig
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.norm_rope.ref import rmsnorm_ref
 from repro_torch.launch.mesh import DATA_AXIS, MODEL_AXIS, shard_map
 from repro_torch.models import attention
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import (NEG_INF, _gqa_ctx, _gqa_scores,
                                           chunked_attention,
                                           decode_attention)
-from repro_torch.models.layers import apply_rope, rmsnorm
+from repro_torch.models.layers import apply_rope
 from repro_torch.models.sharding import (distribute, logical_rules,
                                          placements_of, spec_for)
 
@@ -302,9 +303,10 @@ def _d_free(mctx, x: DTensor) -> DTensor:
 
 
 def rms_norm(mctx, x: DTensor, w, eps: float) -> DTensor:
-    """rmsnorm on local tokens, in any layout with d whole."""
+    """rmsnorm on local tokens, in any layout with d whole: the plain
+    chain, as the mesh's rope and split norms keep theirs."""
     x = _d_free(mctx, x)
-    return body(mctx, lambda x_, w_: rmsnorm(x_, w_, eps),
+    return body(mctx, lambda x_, w_: rmsnorm_ref(x_, w_, eps),
                 [(x, x.placements), (w, wpl(mctx, (None,), _shape(w)))],
                 [x.placements])
 

@@ -38,10 +38,10 @@ from repro_torch.models import kvcache, tp, tp_recurrent
 from repro_torch.models.attention import (attention_specs, attn_forward,
                                           mla_forward, mla_specs)
 from repro_torch.models.context import MCtx
-from repro_torch.models.layers import (chunked_ce_loss, embed_tokens,
-                                       embedding_specs, mlp_apply, mlp_specs,
-                                       rmsnorm, rmsnorm_spec,
-                                       sinusoidal_pos_emb)
+from repro_torch.models.layers import (add_rmsnorm, chunked_ce_loss,
+                                       embed_tokens, embedding_specs,
+                                       mlp_apply, mlp_specs, rmsnorm,
+                                       rmsnorm_spec, sinusoidal_pos_emb)
 from repro_torch.models.moe import moe_ffn, moe_specs, use_ep
 from repro_torch.models.params import map_specs, stack_specs, torch_dtype
 from repro_torch.models.ssm import ssm_forward, ssm_specs
@@ -231,8 +231,7 @@ def _attn_block_fwd(p, x, positions, cfg: ModelConfig, mctx: MCtx, *,
                              window=window, use_rope=use_rope,
                              q_chunk=q_chunk,
                              mctx=None if kernel is False else mctx)
-    x = x + a
-    h2 = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    x, h2 = add_rmsnorm(x, a, p["ln2"], cfg.norm_eps)
     if moe:
         f, aux = moe_ffn(p["moe"], h2, cfg, mctx)
     else:
