@@ -76,6 +76,34 @@ class Dims:
         """K and V of one position over every layer, in bf16."""
         return 2 * self.layers * self.kv_heads * self.head_dim * BF16_BYTES
 
+    # The yardstick the per-layer readers take (the ``decoder`` family's
+    # ``yardstick``): each the function of the same name below.
+
+    def prefill_flops(self, prompt_lens) -> float:
+        return prefill_flops(self, prompt_lens)
+
+    def decode_step_bytes(self, batch: int, context: int) -> float:
+        return decode_step_bytes(self, batch, context)
+
+    def prefill_attention_bound(self, batch: int, plen: int) -> float:
+        """Least time of a prefill's attention over ``batch`` prompts
+        padded to ``plen``, every layer (``attention_bound``)."""
+        shape = (batch, self.heads, self.kv_heads, plen, self.head_dim,
+                 True, self.window)
+        return self.layers * attention_bound(shape)["bound_s"]
+
+    def decode_expert_bytes(self, batch: int) -> float | None:
+        """``moe_arith.decode_expert_bytes``; None without experts."""
+        from perfbench import moe_arith
+        return moe_arith.decode_expert_bytes(self, batch) \
+            if self.experts else None
+
+    def prefill_expert_flops(self, tokens: int) -> float | None:
+        """``moe_arith.prefill_expert_flops``; None without experts."""
+        from perfbench import moe_arith
+        return moe_arith.prefill_expert_flops(self, tokens) \
+            if self.experts else None
+
 
 def attended_pairs(n: int, window: int = 0) -> int:
     """(query, key) pairs a causal mask leaves over ``n`` positions; with a

@@ -2,9 +2,10 @@
 
 The control is the plain reference put in the program's place and
 computed one precision below the bf16 the configuration states: every
-projection's operands in fp8 (``ReferenceEngine``). It serves the cell's
-traffic through the harness's own loop and comparison, greedy, through a
-K/V cache of its own, and has to read as not correct there.
+projection's operands in fp8 (the cell's family's ``control_engine``).
+It serves the cell's traffic through the harness's own loop and
+comparison, greedy, through a K/V cache of its own, and has to read as
+not correct there.
 
   python3 -m perfbench.control --workload <cell> --seeds 1,2,3 \\
       [--fault state_unchanged] [--no-control]
@@ -30,184 +31,48 @@ Both on the card; the benchmark's own runs never run this.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import gc
 import json
 import sys
 
 from perfbench import faults, run
 
-MAX_TOKENS_PER_PASS = 8192      # prefill rows per forward pass
 
-
-def _tree(flat: dict) -> dict:
-    out: dict = {}
-    for path, t in flat.items():
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = t
-    return out
-
-
-@dataclasses.dataclass
-class Handoff:
-    requests: list
-    tok: object                 # (B, 1) first tokens
-    plen: int
-    max_new: int
-    groups: list                # (rows, prompt length, per-layer (K, V))
-
-
-@dataclasses.dataclass
-class Answer:
-    rid: int
-    tokens: list
-
-
-class ReferenceEngine:
-    """The reference (``Reference(c, w, quant)``) serving requests as the
-    program's engine does: the first token from the prompt pass, then
-    greedy steps, each against a K/V cache in fp32 that it fills itself.
-    Requests of one prompt length go together, so no position is padding.
-    Its weights (``params_home``) are written by the harness like the
-    program's."""
-
-    def __init__(self, c: dict, device, quant: str | None = "fp8"):
-        import torch
-        from perfbench.reference.model import Reference
-        from perfbench.reference.weights import leaf_shapes
-        self.c = c
-        self.device = torch.device(device)
-        self.tracer = None
-        flat = {p: torch.empty(s, dtype=torch.bfloat16, device=self.device)
-                for p, s in leaf_shapes(c).items()}
-        self.params_home = _tree(flat)
-        self.ref = Reference(c, flat, quant=quant)
-
-    def _attend(self, h, l: int, kv: tuple, pos: int):
-        """Attention of ``h`` (B, n, d) at positions ``pos`` on, its K/V
-        written into ``kv`` first."""
-        import torch
-        c, ref, seg = self.c, self.ref, self.ref.seg
-        B, n, d = h.shape
-        Hq, Hkv, dh = (c["num_attention_heads"], c["num_key_value_heads"],
-                       c["head_dim"])
-        proj = {w: ref._mm(h, ref._leaf(seg, "attn", w, layer=l)
-                           .reshape(d, -1)).view(B, n, -1, dh)
-                for w in ("w_q", "w_k", "w_v")}
-        K, V = kv
-        K[:, pos:pos + n] = ref._rope(proj["w_k"], pos)
-        V[:, pos:pos + n] = proj["w_v"]
-        q = ref._rope(proj["w_q"], pos).view(B, n, Hkv, Hq // Hkv, dh)
-        T = pos + n
-        s = torch.einsum("bnkgd,btkd->bkgnt", q, K[:, :T]) / dh ** 0.5
-        keys = torch.arange(T, device=h.device)
-        at = torch.arange(pos, T, device=h.device)[:, None]
-        mask = keys[None, :] <= at
-        window = c.get("sliding_window") or 0
-        if window:
-            mask &= keys[None, :] > at - window
-        s = s.masked_fill(~mask, float("-inf"))
-        ctx = torch.einsum("bkgnt,btkd->bnkgd", torch.softmax(s, -1),
-                           V[:, :T]).reshape(B, n, Hq * dh)
-        w_o = ref._leaf(seg, "attn", "w_o", layer=l).reshape(Hq * dh, d)
-        return ref._mm(ctx, w_o)
-
-    def _last_logits(self, toks, kv: list, pos: int):
-        """fp32 logits (B, vocab) at the last of ``toks`` (B, n), which sit
-        at positions ``pos`` on."""
-        from perfbench.reference.model import fp32_products
-        ref, seg = self.ref, self.ref.seg
-        with fp32_products():
-            x = ref.w[("embed", "tok")][toks].float()
-            for l in range(self.c["num_hidden_layers"]):
-                x = x + self._attend(
-                    ref._norm(x, ref._leaf(seg, "ln1", layer=l)), l, kv[l],
-                    pos)
-                x = x + ref._ffn(
-                    ref._norm(x, ref._leaf(seg, "ln2", layer=l)), l)
-            return ref._mm(ref._norm(x[:, -1], ref._leaf("final_norm")),
-                           ref._leaf("embed", "out"))
-
-    def prefill(self, requests: list) -> Handoff:
-        import numpy as np
-        import torch
-        c = self.c
-        max_new = max(r.max_new for r in requests)
-        first = torch.empty((len(requests), 1), dtype=torch.long,
-                            device=self.device)
-        by_len: dict = {}
-        for i, r in enumerate(requests):
-            by_len.setdefault(len(r.prompt), []).append(i)
-        groups = []
-        with torch.no_grad():
-            for plen, rows in by_len.items():
-                shape = (len(rows), plen + max_new, c["num_key_value_heads"],
-                         c["head_dim"])
-                kv = [tuple(torch.zeros(shape, device=self.device)
-                            for _ in range(2))
-                      for _ in range(c["num_hidden_layers"])]
-                per = max(1, MAX_TOKENS_PER_PASS // plen)
-                for a in range(0, len(rows), per):
-                    part = rows[a:a + per]
-                    toks = torch.as_tensor(
-                        np.stack([requests[i].prompt for i in part]),
-                        dtype=torch.long, device=self.device)
-                    view = [(K[a:a + per], V[a:a + per]) for K, V in kv]
-                    first[part] = self._last_logits(toks, view, 0) \
-                        .argmax(-1, keepdim=True)
-                groups.append((rows, plen, kv))
-        return Handoff(requests, first, max(by_len), max_new, groups)
-
-    def decode(self, handoff: Handoff) -> list:
-        import torch
-        outs = [[] for _ in handoff.requests]
-        with torch.no_grad():
-            for rows, plen, kv in handoff.groups:
-                tok = handoff.tok[rows]
-                for s in range(handoff.max_new):
-                    tok = self._last_logits(tok, kv, plen + s) \
-                        .argmax(-1, keepdim=True)
-                    for i, t in zip(rows, tok.view(-1).tolist()):
-                        outs[i].append(t)
-        return [Answer(r.rid, outs[i][:r.max_new])
-                for i, r in enumerate(handoff.requests)]
-
-
-def factory(c: dict, quant: str | None = "fp8"):
-    """(cfg, offload, device) -> the control engine for configuration
-    file ``c``, as ``run.run_cell`` takes an engine factory."""
-    return lambda cfg, offload, device: ReferenceEngine(c, device, quant)
+def factory(cell: run.Cell, quant: str | None = "fp8"):
+    """(cfg, offload, device) -> the control engine of ``cell``'s
+    family for its configuration, as ``run.run_cell`` takes an engine
+    factory."""
+    return lambda cfg, offload, device: cell.family.control_engine(
+        cell.config, device, quant)
 
 
 def readings(cell: run.Cell, seeds: list[int], device="cuda",
-             engine_factory=None, control: bool = True) -> list[dict]:
+             engine_factory=None, control: bool = True):
+    """Each seed's row of served gaps, the program's and, with
+    ``control``, the fp8 reference's at the same tokens, as it is read."""
     import torch
     from repro_torch.launch.serve import ServeEngine
     from perfbench.reference.check import (control_gaps, mean, sample,
                                            served_gaps, widest)
-    from perfbench.reference.model import Reference
     from perfbench.reference.weights import draw_all
     from perfbench.traffic import Traffic
-    c = cell.config
-    cfg = run.port_config(c)
+    c, fam = cell.config, cell.family
+    cfg = fam.port_config(c)
     offload = bool(c.get("serve", {}).get("offload_weights", False))
     factory_ = engine_factory or (lambda cfg, off, dev: ServeEngine(
         cfg, offload_weights=off, rng_seed=0, device=dev))
     engine = factory_(cfg, offload, device)
-    out = []
     for seed in seeds:
-        run.fill_weights(engine.params_home, c, seed, device)
+        run.fill_weights(engine.params_home, fam, c, seed, device)
         traffic = Traffic(cell.mix, c["vocab_size"], seed)
         batch = run.serve_batch(engine, traffic.next_batch())
         picked = sample(list(zip(batch["draws"], batch["served"])), seed,
                         cell.settings["sample_tokens"])
         items = [(d.prompt, s) for d, s in picked]
-        w = draw_all(c, seed, device)
-        ref = Reference(c, w)
+        w = draw_all(fam, c, seed, device)
+        ref = fam.reference(c, w)
         gaps = served_gaps(ref, items)
-        ctl = control_gaps(ref, Reference(c, w, quant="fp8"), items) \
+        ctl = control_gaps(ref, fam.reference(c, w, quant="fp8"), items) \
             if control else None
         del w, ref
         gc.collect()
@@ -217,9 +82,7 @@ def readings(cell: run.Cell, seeds: list[int], device="cuda",
                "program_gap": widest(gaps), "program_mean": mean(gaps)}
         if ctl is not None:
             row.update(control_gap=widest(ctl), control_mean=mean(ctl))
-        out.append(row)
-        print(json.dumps(row), flush=True)
-    return out
+        yield row
 
 
 def main(argv=None) -> int:
@@ -241,18 +104,23 @@ def main(argv=None) -> int:
     seeds = [int(s) for s in args.seeds.split(",")]
     if args.run:
         for seed in seeds:
-            make = factory(cell.config) if args.run == "control" \
+            make = factory(cell) if args.run == "control" \
                 else faults.factory(args.run)
             out = run.run_cell(cell, seed, args.seconds, False, "cuda",
                                engine_factory=make)
+            if run.holds_forbidden("perfbench.control"):
+                return 3
             print(json.dumps({"run": args.run, "seed": seed, **out}),
                   flush=True)
             gc.collect()
             torch.cuda.empty_cache()
         return 0
-    readings(cell, seeds,
-             engine_factory=args.fault and faults.factory(args.fault),
-             control=not args.no_control)
+    make = args.fault and faults.factory(args.fault)
+    for row in readings(cell, seeds, engine_factory=make,
+                        control=not args.no_control):
+        if run.holds_forbidden("perfbench.control"):
+            return 3
+        print(json.dumps(row), flush=True)
     return 0
 
 

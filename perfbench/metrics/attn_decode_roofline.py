@@ -2,7 +2,8 @@
 decode steps, in %. The least time is the live K and V those steps must
 read, over the card's 3.35 TB/s: step i of a batch of ``batch`` sequences
 whose prompts were padded to ``plen`` attends to ``plen + i + 1`` positions
-of every layer, ``Dims.kv_bytes_per_token`` each. The device time is the
+of every layer, the yardstick's ``kv_bytes_per_token`` each. The device
+time is the
 union of the intervals of the dense decode attention kernel (K8: its split
 kernel and its combine) in the profiled decode.
 

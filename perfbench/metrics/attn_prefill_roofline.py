@@ -1,9 +1,10 @@
 """Attention's least time over its device time in the profiled prefill,
-in %. The least time is ``arith.attention_bound`` over the shapes the
-engine hands attention (the padded batch, every layer); the device time
-is the union of the intervals of the kernels named below, whichever of
-them implements attention, so the metric reads the same work whatever
-runs it."""
+in %. The least time is the yardstick's ``prefill_attention_bound`` of
+the shapes the engine hands attention (the padded batch, every layer:
+``arith.attention_bound`` for the decoder family); the device time is
+the union of the intervals of the kernels named below, whichever of them
+implements attention, so the metric reads the same work whatever runs
+it."""
 
 from perfbench import arith
 from perfbench.trace import intervals
@@ -24,9 +25,6 @@ def read(record):
     t = arith.covered(ivs, lo, hi)
     if t <= 0:
         return None
-    d = record["dims"]
     p = record["profiled"]
-    shape = (p["batch"], d.heads, d.kv_heads, p["plen"], d.head_dim, True,
-             d.window)
-    bound = d.layers * arith.attention_bound(shape)["bound_s"]
+    bound = record["dims"].prefill_attention_bound(p["batch"], p["plen"])
     return 100.0 * bound / t

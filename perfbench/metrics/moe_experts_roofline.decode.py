@@ -1,9 +1,10 @@
 """The expert layers' least time over their device time in the profiled
-decode steps, in %. The least time is ``moe_arith.decode_expert_bytes``
-(every expert's weights read once a step, the routed rows in and out)
-over the card's 3.35 TB/s, times the steps profiled; the device time is
-the union of the intervals of the kernels that compute the experts,
-whatever implements them (``moe_experts_roofline.prefill.KERNELS``).
+decode steps, in %. The least time is the yardstick's
+``decode_expert_bytes`` (every expert's weights read once a step, the
+routed rows in and out) over the card's 3.35 TB/s, times the steps
+profiled; the device time is the union of the intervals of the kernels
+that compute the experts, whatever implements them
+(``moe_experts_roofline.prefill.KERNELS``).
 
 The steps are counted from the trace: a decode step reads its tokens back
 to the host once (one device-to-host copy), and the harness's profiled
@@ -13,7 +14,7 @@ a step there."""
 import importlib.util
 from pathlib import Path
 
-from perfbench import arith, moe_arith
+from perfbench import arith
 from perfbench.trace import intervals
 
 
@@ -29,8 +30,10 @@ def _prefill_reader():
 def read(record):
     trace = record.get("trace")
     d = record.get("dims")
-    if not trace or "decode" not in trace["marks"] or not d or \
-            not d.experts:
+    if not trace or "decode" not in trace["marks"] or not d:
+        return None
+    need = d.decode_expert_bytes(record["profiled"]["batch"])
+    if need is None:
         return None
     lo, hi = trace["marks"]["decode"]
     t = arith.covered(intervals(trace["device"], lo, hi,
@@ -40,6 +43,5 @@ def read(record):
                 and lo <= e["start"] < hi)
     if t <= 0 or steps == 0:
         return None
-    bound = steps * moe_arith.decode_expert_bytes(
-        d, record["profiled"]["batch"]) / arith.HBM_BYTES_PER_S
+    bound = steps * need / arith.HBM_BYTES_PER_S
     return 100.0 * bound / t

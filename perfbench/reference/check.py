@@ -18,8 +18,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from perfbench.reference.model import Reference
-
 MAX_TOKENS_PER_PASS = 8192      # reference activations per forward pass
 
 
@@ -49,9 +47,10 @@ def _inputs(items: list, idx: list[int]) -> tuple[list, list]:
     return seqs, want
 
 
-def served_gaps(ref: Reference, items: list) -> list[np.ndarray]:
+def served_gaps(ref, items: list) -> list[np.ndarray]:
     """Per item (prompt, served tokens): the gap of each served token
-    under the reference's logits at the position that produced it."""
+    under the reference's logits (``ref.logits``, a family's
+    ``reference``) at the position that produced it."""
     out: list = [None] * len(items)
     for idx in _passes(items):
         seqs, want = _inputs(items, idx)
@@ -63,8 +62,7 @@ def served_gaps(ref: Reference, items: list) -> list[np.ndarray]:
     return out
 
 
-def control_gaps(ref: Reference, ctl: Reference, items: list
-                 ) -> list[np.ndarray]:
+def control_gaps(ref, ctl, items: list) -> list[np.ndarray]:
     """Per item: at each position that produced a served token, the
     reference's gap of the token the control puts first there."""
     out: list = [None] * len(items)

@@ -3,14 +3,16 @@
 The benchmark draws every leaf itself, on the device, in bf16, from a
 generator seeded by (seed, leaf path), in one call per leaf, and hands the
 same values to the program (written into its parameter tree) and to the
-reference (drawn again after the program is gone). The layout is the one
-a llama-style or Mixtral-style decoder's weights take in the program's
-tree: layers stacked on a leading axis, projections as (in, heads, head
-dim), experts on an axis of their own.
+reference (drawn again after the program is gone). ``draw``, ``leaf_seed``
+and ``draw_all`` serve every model family; the tree (``leaf_shapes``) and
+each leaf's mean and scale (``leaf_init``) are the family's.
 
-Norm gains are drawn around 1 (so that a norm applied wrongly shows); the
-token table has unit scale; every other matrix is scaled by one over the
-square root of the dimension it contracts.
+Those of the ``decoder`` family are here: the layout a llama-style or
+Mixtral-style decoder's weights take in the program's tree (layers stacked
+on a leading axis, projections as (in, heads, head dim), experts on an
+axis of their own). Norm gains are drawn around 1 (so that a norm applied
+wrongly shows); the token table has unit scale; every other matrix is
+scaled by one over the square root of the dimension it contracts.
 """
 
 from __future__ import annotations
@@ -80,9 +82,10 @@ def leaf_seed(seed: int, path: tuple) -> int:
 
 
 def draw(seed: int, path: tuple, shape: tuple, device,
-         out: torch.Tensor | None = None) -> torch.Tensor:
+         out: torch.Tensor | None = None, *, init) -> torch.Tensor:
     """The leaf at ``path``, drawn on ``device`` in bf16 (into ``out`` when
-    given: a contiguous bf16 tensor of ``shape`` on ``device``)."""
+    given: a contiguous bf16 tensor of ``shape`` on ``device``) from the
+    normal that ``init(path, shape)`` (a family's ``leaf_init``) gives."""
     device = torch.device(device)
     if out is None:
         out = torch.empty(shape, dtype=torch.bfloat16, device=device)
@@ -92,11 +95,12 @@ def draw(seed: int, path: tuple, shape: tuple, device,
                          f"{out.dtype} {tuple(out.shape)} tensor on "
                          f"{out.device}")
     gen = torch.Generator(device=device).manual_seed(leaf_seed(seed, path))
-    mean, std = leaf_init(path, shape)
+    mean, std = init(path, shape)
     return out.normal_(mean, std, generator=gen)
 
 
-def draw_all(c: dict, seed: int, device) -> dict:
-    """{path: bf16 tensor} of every leaf."""
-    return {path: draw(seed, path, shape, device)
-            for path, shape in leaf_shapes(c).items()}
+def draw_all(family, c: dict, seed: int, device) -> dict:
+    """{path: bf16 tensor} of every leaf of ``family``'s tree for the
+    configuration ``c``."""
+    return {path: draw(seed, path, shape, device, init=family.leaf_init)
+            for path, shape in family.leaf_shapes(c).items()}

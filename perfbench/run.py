@@ -10,6 +10,14 @@ name: the configuration file ``BENCHMARK.json`` names, the traffic mix
 ``perfbench/workloads/<cell>.json`` and a reader ``perfbench/metrics/
 <metric>.py`` for every metric the cell reports.
 
+The configuration file names its model family (``"family"``): the module
+``perfbench/families/<family>.py`` holds all the harness knows of the
+model, from the check of the program's configuration and the weight tree
+to the reference, the control and the counts the per-layer readers take.
+Outside the families, the reference, ``arith.py`` and ``moe_arith.py`` the
+harness reads no key of a configuration but ``family``, ``arch``,
+``vocab_size`` and ``serve``.
+
 A run: set-up (the program's ``ServeEngine`` built, every weight drawn
 again from ``--seed`` into it, the cell's largest shapes warmed up), then a
 closed loop of the mix's clients for ``--seconds``: whenever they wait,
@@ -48,6 +56,7 @@ from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 HERE = ROOT / "perfbench"
+FAMILIES = HERE / "families"
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")   # top-level names, whole
 PROFILED_DECODE_STEPS = 8
 PROFILE_ATTEMPTS = 3
@@ -71,6 +80,7 @@ class Cell:
     name: str
     chips: int
     config: dict                # the configuration file
+    family: object              # the module of its model family
     mix: dict                   # the traffic mix file
     settings: dict              # perfbench/workloads/<cell>.json
     end_to_end: dict            # metric name -> its BENCHMARK.json entry
@@ -81,7 +91,10 @@ def _reports(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
 
-def load_cell(name: str, bench: dict | None = None) -> Cell:
+def load_cell(name: str, bench: dict | None = None,
+              families: Path = FAMILIES) -> Cell:
+    """The cell ``name`` of ``bench`` (default ``BENCHMARK.json``), its
+    configuration's family taken from ``families``."""
     if bench is None:
         bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     work = {w["name"]: w for w in bench["workloads"]}
@@ -90,9 +103,18 @@ def load_cell(name: str, bench: dict | None = None) -> Cell:
                          f"BENCHMARK.json; have {sorted(work)}")
     w = work[name]
     conf = {c["name"]: c for c in bench["configs"]}[w["config"]]
+    config = json.loads((ROOT / conf["file"]).read_text())
+    kind = config.get("family")
+    if kind is None:
+        raise SystemExit(f"perfbench: {conf['file']} names no model family "
+                         f"(its key \"family\"); the families are the "
+                         f"modules in {families}")
+    if not (Path(families) / f"{kind}.py").is_file():
+        raise SystemExit(f"perfbench: {conf['file']} names the model family "
+                         f"{kind!r}, but {families} holds no {kind}.py")
     return Cell(
-        name=name, chips=int(w["chips"]),
-        config=json.loads((ROOT / conf["file"]).read_text()),
+        name=name, chips=int(w["chips"]), config=config,
+        family=family(kind, families),
         mix=json.loads((HERE / "traffic" / f"{w['traffic']}.json")
                        .read_text()),
         settings=json.loads((HERE / "workloads" / f"{name}.json")
@@ -103,14 +125,22 @@ def load_cell(name: str, bench: dict | None = None) -> Cell:
                    if _reports(m, name)})
 
 
-def reader(metric: str):
-    """The ``read(record)`` of ``perfbench/metrics/<metric>.py``."""
-    path = HERE / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"perfbench.metrics.{metric.replace('.', '_')}", path)
+def _load(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def family(name: str, where: Path = FAMILIES):
+    """The module ``<where>/<name>.py`` of the model family ``name``."""
+    return _load(Path(where) / f"{name}.py", f"perfbench.families.{name}")
+
+
+def reader(metric: str):
+    """The ``read(record)`` of ``perfbench/metrics/<metric>.py``."""
+    return _load(HERE / "metrics" / f"{metric}.py",
+                 f"perfbench.metrics.{metric.replace('.', '_')}").read
 
 
 # --------------------------------------------------------------------------
@@ -118,44 +148,13 @@ def reader(metric: str):
 # --------------------------------------------------------------------------
 
 
-def port_config(c: dict):
-    """The program's registered configuration with the file's overrides,
-    held to the sizes the file states."""
-    from repro_torch.config.base import get_config
-    cfg = get_config(c["arch"])
-    over = dict(c.get("overrides", {}))
-    if "moe" in over:
-        over["moe"] = dataclasses.replace(cfg.moe, **over["moe"])
-    cfg = dataclasses.replace(cfg, **over)
-    window = cfg.window if cfg.attn_type == "swa" else 0
-    have = {"hidden_size": cfg.d_model, "num_attention_heads": cfg.num_heads,
-            "num_key_value_heads": cfg.num_kv_heads,
-            "head_dim": cfg.resolved_head_dim,
-            "num_hidden_layers": cfg.num_layers, "vocab_size": cfg.vocab_size,
-            "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.norm_eps,
-            "tie_word_embeddings": cfg.tie_embeddings,
-            "attention_bias": cfg.qkv_bias, "sliding_window": window or None,
-            "torch_dtype": cfg.dtype}
-    if cfg.moe is None:
-        have["intermediate_size"] = cfg.d_ff
-    else:
-        have.update({"intermediate_size": cfg.moe.d_ff_expert,
-                     "num_local_experts": cfg.moe.num_experts,
-                     "num_experts_per_tok": cfg.moe.top_k})
-    wrong = {k: (v, c.get(k)) for k, v in have.items() if c.get(k) != v}
-    if wrong:
-        raise ValueError(f"the program's {c['arch']} departs from the "
-                         f"configuration file: {{key: (program, file)}} "
-                         f"{wrong}")
-    return cfg
-
-
-def fill_weights(params: dict, c: dict, seed: int, device) -> None:
-    """Write the benchmark's weights for ``seed`` into the program's tree:
-    in place where a leaf lives on ``device``, through a device buffer
-    where it lives in the host tier."""
+def fill_weights(params: dict, fam, c: dict, seed: int, device) -> None:
+    """Write the benchmark's weights for ``seed`` into the program's tree,
+    which has to be the family ``fam``'s for the configuration ``c``: in
+    place where a leaf lives on ``device``, through a device buffer where
+    it lives in the host tier."""
     import torch
-    from perfbench.reference.weights import draw, leaf_shapes
+    from perfbench.reference.weights import draw
     flat = {}
 
     def walk(node, path):
@@ -165,7 +164,7 @@ def fill_weights(params: dict, c: dict, seed: int, device) -> None:
             else:
                 flat[path + (k,)] = v
     walk(params, ())
-    want = leaf_shapes(c)
+    want = fam.leaf_shapes(c)
     have = {p: tuple(t.shape) for p, t in flat.items()}
     if have != {p: tuple(s) for p, s in want.items()}:
         raise ValueError(f"the program's weight tree differs from the "
@@ -175,9 +174,11 @@ def fill_weights(params: dict, c: dict, seed: int, device) -> None:
     with torch.no_grad():
         for path, leaf in flat.items():
             if leaf.device == device:
-                draw(seed, path, want[path], device, out=leaf.data)
+                draw(seed, path, want[path], device, out=leaf.data,
+                     init=fam.leaf_init)
             else:
-                leaf.data.copy_(draw(seed, path, want[path], device))
+                leaf.data.copy_(draw(seed, path, want[path], device,
+                                     init=fam.leaf_init))
 
 
 def _sync(device) -> None:
@@ -205,6 +206,19 @@ def forbidden_modules(modules: dict | None = None) -> list[str]:
     modules = sys.modules if modules is None else modules
     return sorted({m.split(".")[0] for m, mod in list(modules.items())
                    if m.split(".")[0] in FORBIDDEN and mod is not None})
+
+
+def holds_forbidden(prog: str = "perfbench") -> bool:
+    """Whether this process holds a module of ``FORBIDDEN``, named on
+    standard error if it does. A main asks once the window has closed,
+    before it prints a result, and prints none where the answer is yes;
+    not ``run_cell``, which tests call in processes that hold jax for
+    their own."""
+    leaked = forbidden_modules()
+    if leaked:
+        print(f"{prog}: modules loaded that the run may not hold: "
+              f"{leaked}", file=sys.stderr)
+    return bool(leaked)
 
 
 # --------------------------------------------------------------------------
@@ -352,7 +366,6 @@ def check_served(cell: Cell, seed: int, done: list, device) -> dict:
     """The reference over a sample of the completed requests: {check:
     (value, limit)}; a value of None could not be read and fails."""
     from perfbench.reference.check import mean, sample, served_gaps, widest
-    from perfbench.reference.model import Reference
     from perfbench.reference.weights import draw_all
     limits = cell.settings["limits"]
     missing = sum(1 for d, s in done if len(s) != d.max_new + 1)
@@ -370,7 +383,8 @@ def check_served(cell: Cell, seed: int, done: list, device) -> dict:
     checks["tokens_out_of_vocab"] = (out_of_range, 0)
     if out_of_range:
         return {**checks, **unread}
-    ref = Reference(cell.config, draw_all(cell.config, seed, device))
+    fam, c = cell.family, cell.config
+    ref = fam.reference(c, draw_all(fam, c, seed, device))
     gaps = served_gaps(ref, picked)
     checks["served_gap"] = (widest(gaps), limits["served_gap"])
     checks["served_gap_mean"] = (mean(gaps), limits["served_gap_mean"])
@@ -389,21 +403,20 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     import torch
     from repro_torch.launch.serve import ServeEngine
     from repro_torch.obs import NULL_TRACER, Tracer
-    from perfbench import arith
     from perfbench.trace import breakdown, busy, spans
     from perfbench.traffic import Traffic
 
     t_process = time.perf_counter() if t_process is None else t_process
     cuda = torch.device(device).type == "cuda"
-    c = cell.config
-    cfg = port_config(c)
+    c, fam = cell.config, cell.family
+    cfg = fam.port_config(c)
     offload = bool(c.get("serve", {}).get("offload_weights", False))
     factory = engine_factory or (lambda cfg, off, dev: ServeEngine(
         cfg, offload_weights=off, rng_seed=0, device=dev))
     t_start = time.perf_counter()
     engine = factory(cfg, offload, device)
     t_engine = time.perf_counter()
-    fill_weights(engine.params_home, c, seed, device)
+    fill_weights(engine.params_home, fam, c, seed, device)
     _sync(device)
     t_weights = time.perf_counter()
     traffic = Traffic(cell.mix, c["vocab_size"], seed)
@@ -423,7 +436,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     engine.tracer = NULL_TRACER
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     record, done = window_record(batches, start)
-    record.update(setup_s=setup_s, dims=arith.Dims.from_config(c))
+    record.update(setup_s=setup_s, dims=fam.yardstick(c))
     dev_info = {"platform": "gpu" if cuda else "cpu",
                 "kind": torch.cuda.get_device_name(device) if cuda
                 else "cpu", "count": cell.chips,
@@ -443,9 +456,6 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         if v is not None:
             values[name] = {"value": v, "unit": m["unit"]}
 
-    leaked = forbidden_modules()
-    if leaked:
-        raise ForbiddenImport(leaked)
     del engine
     gc.collect()
     if cuda:
@@ -461,12 +471,6 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     out["checks"] = {k: {"value": v, "limit": lim}
                      for k, (v, lim) in checks.items()}
     return out
-
-
-class ForbiddenImport(RuntimeError):
-    def __init__(self, names):
-        super().__init__(f"modules loaded that the run may not hold: {names}")
-        self.names = names
 
 
 def main(argv=None) -> int:
@@ -485,16 +489,9 @@ def main(argv=None) -> int:
         print(f"perfbench: {args.workload} needs {cell.chips} CUDA "
               f"card(s); this machine has {n}", file=sys.stderr)
         return 2
-    try:
-        out = run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                       "cuda", T_PROCESS)
-    except ForbiddenImport as e:
-        print(f"perfbench: {e}", file=sys.stderr)
-        return 3
-    leaked = forbidden_modules()
-    if leaked:
-        print(f"perfbench: modules loaded that the run may not hold: "
-              f"{leaked}", file=sys.stderr)
+    out = run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda",
+                   T_PROCESS)
+    if holds_forbidden():
         return 3
     for k, c in out["checks"].items():
         print(f"perfbench: check {k} {c['value']!r} limit {c['limit']!r}",

@@ -138,11 +138,11 @@ def run_seeds(cell: run.Cell, seeds: list, seconds: float,
     from perfbench.traffic import Traffic
     c = cell.config
     offload = bool(c.get("serve", {}).get("offload_weights", False))
-    engine = ServeEngine(run.port_config(c), offload_weights=offload,
-                         rng_seed=0, device=device)
+    engine = ServeEngine(cell.family.port_config(c),
+                         offload_weights=offload, rng_seed=0, device=device)
     out = []
     for seed in seeds:
-        run.fill_weights(engine.params_home, c, seed, device)
+        run.fill_weights(engine.params_home, cell.family, c, seed, device)
         traffic = Traffic(cell.mix, c["vocab_size"], seed)
         run.warm_up(engine, traffic, device)
         out.append({"workload": cell.name, "seed": seed, **readings(
@@ -168,6 +168,8 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name()
     for line in run_seeds(cell, [int(s) for s in args.seeds.split(",")],
                           args.seconds):
+        if run.holds_forbidden("perfbench.split"):
+            return 3
         print(json.dumps({**line, "device": kind,
                           "power_limit": run.power_limit()}), flush=True)
     return 0

@@ -13,7 +13,7 @@ import torch
 from perfbench import arith, moe_arith, run
 from perfbench.reference.model import Reference
 from perfbench.reference.weights import draw_all, leaf_shapes
-from perfbench.tests.tiny import tiny_config
+from perfbench.tests.tiny import DECODER, tiny_config
 from perfbench.tests.test_perfbench_reference import _tree
 
 CONFIG = run.ROOT / "perfbench" / "configs" / "mixtral-8x22b-7of56.json"
@@ -40,7 +40,7 @@ def test_configuration_keeps_the_published_widths():
             c["num_key_value_heads"], c["head_dim"], c["vocab_size"]) == \
         (6144, 16384, 8, 2, 48, 8, 128, 32768)
     assert "capacity_factor" not in json.dumps(c["overrides"])
-    cfg = run.port_config(c)
+    cfg = DECODER.port_config(c)
     assert cfg.num_layers == 7 and cfg.moe.num_experts == 8
     d = arith.Dims.from_config(c)
     assert d.weight_count * 2 == 35_862_171_648
@@ -49,7 +49,7 @@ def test_configuration_keeps_the_published_widths():
 
 def test_tiny_configuration_fits_port_config_and_leaf_shapes():
     c = _tiny()
-    cfg = run.port_config(c)
+    cfg = DECODER.port_config(c)
     from repro_torch.models.model import Model
     model = Model.create(cfg, device="cpu")
     have = {}
@@ -70,7 +70,8 @@ def test_cell_reads_the_configuration_and_the_flexgen_mix():
     assert cell.chips == 1 and cell.mix["clients"] == 64
     assert cell.config["arch"] == "mixtral-8x22b"
     assert set(cell.per_layer) == {"moe_experts_roofline.decode",
-                                   "moe_experts_roofline.prefill"}
+                                   "moe_experts_roofline.prefill",
+                                   "attn_decode_roofline"}
     assert set(cell.end_to_end) == {"ttft_ms_p95", "tpot_ms_p50",
                                     "output_tokens_per_s", "setup_s"}
 
@@ -86,8 +87,9 @@ def test_serving_roles_match_the_reference_where_capacity_drops(skew):
     from repro_torch.models.transformer import forward_hidden
     c = _tiny()
     c["overrides"]["moe"]["capacity_factor"] = 0.5
-    cfg = dataclasses.replace(run.port_config(c), dtype="float32")
-    w = {p: t.float() for p, t in draw_all(c, 2 ** 31 + 11, "cpu").items()}
+    cfg = dataclasses.replace(DECODER.port_config(c), dtype="float32")
+    w = {p: t.float()
+         for p, t in draw_all(DECODER, c, 2 ** 31 + 11, "cpu").items()}
     if skew:
         w[("moe", "moe", "router")][..., 0] *= skew
     model = Model.create(cfg, ParallelConfig(attention_kernel="eager"), "cpu")

@@ -10,7 +10,7 @@ import torch
 
 from perfbench.reference.model import Reference, fake_fp8
 from perfbench.reference.weights import draw_all, leaf_shapes
-from perfbench.tests.tiny import tiny_config
+from perfbench.tests.tiny import DECODER, tiny_config
 
 YI = tiny_config({"arch": "yi-9b", "rope_theta": 1e4, "rms_norm_eps": 1e-6})
 MIXTRAL = tiny_config({"arch": "mixtral-8x22b", "rope_theta": 1e6,
@@ -65,7 +65,8 @@ def test_leaf_shapes_are_the_programs_tree(c):
 @pytest.mark.parametrize("c", [YI, MIXTRAL], ids=["yi", "mixtral"])
 def test_reference_matches_the_program_prefill_and_decode(c):
     torch.manual_seed(0)
-    w = {p: t.float() for p, t in draw_all(c, 2 ** 31 + 7, "cpu").items()}
+    w = {p: t.float()
+         for p, t in draw_all(DECODER, c, 2 ** 31 + 7, "cpu").items()}
     model = _port(c)
     B, S, steps = 2, 12, 4
     toks = torch.randint(1, c["vocab_size"], (B, S + steps))
@@ -86,7 +87,7 @@ def test_reference_matches_the_program_prefill_and_decode(c):
 
 
 def test_reference_runs_from_bf16_weights_and_the_control_differs():
-    w = draw_all(YI, 3, "cpu")
+    w = draw_all(DECODER, YI, 3, "cpu")
     seq = [list(range(1, 20))]
     ref = Reference(YI, w).logits(seq, [[18]])[0]
     ctl = Reference(YI, w, quant="fp8").logits(seq, [[18]])[0]
@@ -103,8 +104,8 @@ def test_fake_fp8_keeps_three_mantissa_bits():
 
 
 def test_draws_are_deterministic_by_seed_and_path():
-    a, b = draw_all(YI, 5, "cpu"), draw_all(YI, 5, "cpu")
-    c = draw_all(YI, 6, "cpu")
+    a, b = draw_all(DECODER, YI, 5, "cpu"), draw_all(DECODER, YI, 5, "cpu")
+    c = draw_all(DECODER, YI, 6, "cpu")
     for p in a:
         assert torch.equal(a[p], b[p])
     assert not torch.equal(a[("embed", "tok")], c[("embed", "tok")])

@@ -4,6 +4,8 @@ underneath reads not correct, once for each fault a serving cell can
 have. The control at a size the CPU holds."""
 
 import json
+import sys
+import types
 
 import pytest
 import torch
@@ -54,6 +56,16 @@ def test_fault_reads_not_correct(name, fault):
     assert not out["correct"], out["checks"]
 
 
+def test_a_run_goes_on_in_a_process_that_holds_jax(monkeypatch):
+    """A test process may hold jax for tests of its own: ``run_cell``
+    leaves the look for forbidden modules to ``main``, which makes it in
+    the process that prints the result."""
+    monkeypatch.setitem(sys.modules, "jax", types.ModuleType("jax"))
+    assert "jax" in run.forbidden_modules()
+    out = run.run_cell(tiny_cell(), SEED, WINDOW_S, False, device="cpu")
+    assert out["correct"], out["checks"]
+
+
 def test_window_counts_only_batches_that_end_inside_it():
     cell = tiny_cell()
     out = run.run_cell(cell, SEED, WINDOW_S, False, device="cpu")
@@ -84,7 +96,7 @@ def test_control_in_the_programs_place_reads_not_correct(name):
     run in the program's place, fails the run's own comparison."""
     cell = tiny_cell(name, **CONTROL_SIZES)
     out = run.run_cell(cell, SEED, 3 * WINDOW_S, False, device="cpu",
-                       engine_factory=control.factory(cell.config))
+                       engine_factory=control.factory(cell))
     assert out["attempted"] > 0 and out["failed"] == 0
     assert not out["correct"], out["checks"]
 
@@ -95,7 +107,7 @@ def test_reference_engine_in_fp32_serves_the_references_picks():
     so what the control's run reads comes of fp8 alone."""
     cell = tiny_cell()
     out = run.run_cell(cell, SEED, WINDOW_S, False, device="cpu",
-                       engine_factory=control.factory(cell.config, None))
+                       engine_factory=control.factory(cell, None))
     assert out["correct"], out["checks"]
     assert out["checks"]["served_gap"]["value"] == 0.0
 

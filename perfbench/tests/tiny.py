@@ -15,6 +15,7 @@ PORT = {"hidden_size": "d_model", "num_attention_heads": "num_heads",
         "num_hidden_layers": "num_layers"}
 MIX = {"clients": 4, "prompt": {"fixed": 24}, "answer": {"fixed": 6},
        "pool": 8}
+DECODER = run.family("decoder")
 
 
 def tiny_config(c: dict, **sizes) -> dict:
