@@ -19,6 +19,7 @@ read by nothing, in either package.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import tempfile
 from typing import Any, Callable, Optional
@@ -42,7 +43,7 @@ class MLAConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MoEConfig:
-    num_experts: int = 8
+    num_experts: int = 8          # the experts the router scores
     top_k: int = 2
     num_shared_experts: int = 0
     d_ff_expert: int = 0          # per-expert FFN width
@@ -52,6 +53,51 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router_aux_loss: float = 0.001
     first_dense_layers: int = 0   # deepseek: first k layers are dense
+    # The router. "softmax": top k of a softmax over the experts, gates
+    # renormalized (Mixtral; the JAX package routes every MoE so).
+    # "sigmoid": DeepSeek-V3's (``topk_method`` noaux_tc): sigmoid scores,
+    # a per-expert correction bias (a weight leaf) added for the choice
+    # only, the experts in ``n_group`` groups of which the ``topk_group``
+    # with the best sums of their top-2 choice scores are kept, the top k
+    # of those by choice score; the gates are the unbiased scores of the
+    # chosen experts over their sum, times ``routed_scaling_factor``.
+    # Serving only (models/moe.py).
+    scoring_func: str = "softmax"
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scaling_factor: float = 1.0
+    # The chip's share under expert parallelism: the layer holds experts
+    # [first_held, first_held + experts_held) of the ``num_experts`` it
+    # routes over, and computes their part of the result (0: all of them).
+    # Serving only; the capacity bodies refuse a share.
+    experts_held: int = 0
+    first_held: int = 0
+
+    @property
+    def held(self) -> int:
+        """How many experts the layer holds."""
+        return self.experts_held or self.num_experts
+
+
+@dataclasses.dataclass(frozen=True)
+class YaRNConfig:
+    """YaRN rope scaling (arXiv:2309.00071) as DeepSeek-V3 states it
+    (``rope_scaling`` of its config, ``type`` yarn). ``layers._rope_freqs``
+    builds its frequency table; ``attention`` scales MLA's softmax by
+    ``yarn_mscale(factor, mscale_all_dim) ** 2``."""
+
+    factor: float
+    original_max_position_embeddings: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature, ``0.1 * mscale * ln(factor) + 1`` (1
+    without stretch)."""
+    return 0.1 * mscale * math.log(factor) + 1.0 if factor > 1 else 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +121,7 @@ class ModelConfig:
     qkv_bias: bool = False
     rope_theta: float = 1e6
     mrope: bool = False             # qwen2-vl multimodal rope (3 position axes)
+    rope_scaling: Optional[YaRNConfig] = None   # MLA's rope (deepseek)
 
     # MoE -------------------------------------------------------------------
     moe: Optional[MoEConfig] = None
@@ -145,7 +192,7 @@ class ModelConfig:
         if self.moe is not None:
             e = self.moe
             ff = e.d_ff_expert or self.d_ff
-            per_layer += (e.num_experts + e.num_shared_experts) * 3 * d * ff
+            per_layer += (e.held + e.num_shared_experts) * 3 * d * ff
             per_layer += d * e.num_experts                    # router
         elif self.d_ff:
             per_layer += 3 * d * self.d_ff                    # gated mlp
@@ -166,7 +213,7 @@ class ModelConfig:
         d = self.d_model
         ff = e.d_ff_expert or self.d_ff
         dense_total = self.num_params
-        all_expert = self.num_layers * e.num_experts * 3 * d * ff
+        all_expert = self.num_layers * e.held * 3 * d * ff
         active_expert = self.num_layers * (e.top_k + e.num_shared_experts) * 3 * d * ff
         return int(dense_total - all_expert + active_expert)
 

@@ -4,6 +4,15 @@ First 3 layers are dense (d_ff=18432); remaining 58 are MoE with per-expert
 d_ff=2048. MLA: q_lora 1536, kv_lora 512, qk 128+64 (nope+rope), v 128.
 The MTP (multi-token prediction) head is not part of the backbone compute
 here, as in the reference: the model runs the standard train/serve step.
+
+This registers the JAX package's form, against which the CPU tests hold
+it: softmax top-8 routing over all 256 experts and plain RoPE. The
+published router (sigmoid scores with a correction bias, 8 groups of which
+4 are kept, gates renormalized and scaled by 2.5) and YaRN are
+``MoEConfig`` and ``ModelConfig.rope_scaling`` fields left at their
+defaults here; the benchmark's DeepSeek-V3 configuration
+(``perfbench/families/deepseek.py``) selects them, with one chip's share
+of the experts.
 """
 
 from repro_torch.config.base import (MLAConfig, ModelConfig, MoEConfig,

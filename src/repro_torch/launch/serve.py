@@ -115,8 +115,10 @@ def decode_graph_engages(cfg, device, offload_weights: bool,
     at new addresses every call), off a mesh, and where every segment is
     GQA attention blocks (dense or MoE, windowed or not, M-RoPE included),
     the blocks a gpu test holds replayed against their eager step. MLA
-    reads its position on the device too, but no gpu test holds a replayed
-    MLA step yet; MLA, Mamba2, xLSTM and whisper decode eagerly."""
+    reads its position on the device too (and a held share of the experts
+    reads nothing back in a step), but no gpu test holds a replayed MLA
+    step yet; MLA (DeepSeek-V3's cell among them), Mamba2, xLSTM and
+    whisper decode eagerly."""
     if (torch.device(device).type != "cuda" or offload_weights
             or mesh is not None or cfg.encoder_decoder
             or cfg.attn_type == "mla"):
@@ -219,11 +221,14 @@ class ServeEngine:
         snapshot counts ``serve.decode_graph.captures`` and
         ``serve.decode_graph.replays``. With MoE layers (dropless in
         both roles), each ``model.prefill`` / ``model.decode`` span carries
-        ``moe`` = {``routed_pairs``, ``dropped_pairs``,
+        ``moe`` = {``routed_pairs``, ``held_pairs``, ``dropped_pairs``,
         ``expert_load_max``}, read back after the role's own sync, and the
-        snapshot counts ``moe.routed_pairs`` and ``moe.dropped_pairs`` and
-        keeps the largest ``moe.expert_load_max`` (the busiest expert's
-        share of a layer's pairs). ``slo``
+        snapshot counts ``moe.routed_pairs`` (every (token, slot) pair),
+        ``moe.held_pairs`` (those that reached the experts this chip
+        holds: all of them unless the layers hold a share) and
+        ``moe.dropped_pairs`` and keeps the largest ``moe.expert_load_max``
+        (the busiest held expert's pairs over a layer's mean held pairs).
+        ``slo``
         optionally attaches an ``obs.SLOMonitor``: one latency observation
         per finished request (class "serve").
 
@@ -262,6 +267,8 @@ class ServeEngine:
         self.moe_stats = None
         if cfg.moe is not None:
             self.moe_stats = self.model.mctx.stats = {}
+            self.moe_layers = sum(seg.n for seg in segment_plan(cfg)
+                                  if seg.moe)
 
     @property
     def device(self) -> torch.device:
@@ -291,21 +298,23 @@ class ServeEngine:
         moe.zero_counts(self.moe_stats)
         return {"moe": {}}
 
-    def _read_moe(self, args: dict, tokens: int) -> None:
-        """The call's MoE counters (``tokens`` routed through each MoE
-        layer), after the device sync, into ``args["moe"]`` and the
-        snapshot: ``moe.routed_pairs`` and ``moe.dropped_pairs`` add up,
-        ``moe.expert_load_max`` (the busiest expert's share of a layer's
-        pairs) keeps the largest seen."""
+    def _read_moe(self, args: dict) -> None:
+        """The call's MoE counters, after the device sync, into
+        ``args["moe"]`` and the snapshot: ``moe.routed_pairs``,
+        ``moe.held_pairs`` and ``moe.dropped_pairs`` add up,
+        ``moe.expert_load_max`` (the busiest held expert's pairs over a
+        layer's mean held pairs) keeps the largest seen."""
         if "moe" not in args:
             return
         c = moe.read_counts(self.moe_stats)
-        share = c["busiest_pairs"] / (tokens * self.cfg.moe.top_k)
-        args["moe"].update(routed_pairs=c["routed_pairs"],
+        held = c["held_pairs"]
+        share = c["busiest_pairs"] * self.moe_layers / held if held else 0.0
+        args["moe"].update(routed_pairs=c["routed_pairs"], held_pairs=held,
                            dropped_pairs=c["dropped_pairs"],
                            expert_load_max=share)
         m = self.tracer.metrics
         m.add("moe.routed_pairs", c["routed_pairs"])
+        m.add("moe.held_pairs", held)
         m.add("moe.dropped_pairs", c["dropped_pairs"])
         m.set("moe.expert_load_max",
               max(share, m.gauge("moe.expert_load_max", 0.0)))
@@ -363,7 +372,7 @@ class ServeEngine:
             with tracer.span("serve.readback", track=ENGINE_TRACK,
                              cat="serve", batch_id=bid):
                 _sync(self.device)
-            self._read_moe(moe_args, B * plen)
+            self._read_moe(moe_args)
         prefill_ms = (time.perf_counter() - t0) * 1e3
         return PrefillHandoff(requests, cache, tok, plen, max_new,
                               prefill_ms, bid)
@@ -401,7 +410,7 @@ class ServeEngine:
                                  cat="serve", batch_id=bid):
                     # one device read for the whole batch, not B scalar reads
                     tok_host = tok.cpu().numpy()
-                self._read_moe(moe_args, B)
+                self._read_moe(moe_args)
             if traced:
                 # per-step wall time feeds the straggler detector, whose
                 # summary only the traced metrics snapshot reads

@@ -13,8 +13,10 @@ activation dtype at the end. GQA decode (self and cross) goes through the
 hand-written dense decode attention kernel on CUDA tensors and its plain
 version (``decode_attention``, re-exported here) on the CPU. MLA
 (deepseek-v3) prefills through chunked attention, as the reference does
-(its value head dim differs from its query head dim), and decodes in the
-absorbed latent form. Whisper's
+(its value head dim differs from its query head dim), over slices of the
+batch that bound its fp32 scores, and decodes in the absorbed latent
+form; both turn its rope parts by YaRN's frequencies and scale its
+softmax by YaRN's temperature where ``cfg.rope_scaling`` is set. Whisper's
 decoder attends to its encoder's output through cross-attention: in
 prefill through chunked attention (the flash kernel's gate wants as many
 keys as queries, as the reference's does), in decode against the cross
@@ -30,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.config.base import ModelConfig
+from repro_torch.config.base import ModelConfig, yarn_mscale
 from repro_torch.kernels.decode_attention import dense_decode_attention
 from repro_torch.kernels.decode_attention.ref import (  # noqa: F401
     NEG_INF, _gqa_ctx, _gqa_scores, decode_attention)
@@ -237,6 +239,22 @@ def mla_specs(cfg: ModelConfig) -> dict:
     }
 
 
+# the most bytes of fp32 scores that one slice of an MLA prefill's batch
+# builds in ``chunked_attention`` (a (b, H, q_chunk, S) block)
+MLA_SCORE_BYTES = 1 << 31
+
+
+def mla_scale(cfg: ModelConfig) -> float:
+    """MLA's softmax scale: one over the root of the q.k head dim, times
+    YaRN's ``yarn_mscale(factor, mscale_all_dim)`` squared where the rope
+    is stretched (DeepSeek-V3: 192 ** -0.5 * 1.3689 ** 2)."""
+    m, y = cfg.mla, cfg.rope_scaling
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    if y is not None and y.mscale_all_dim:
+        scale *= yarn_mscale(y.factor, y.mscale_all_dim) ** 2
+    return scale
+
+
 def _mla_q(p: dict, x: torch.Tensor, positions: torch.Tensor,
            cfg: ModelConfig):
     m = cfg.mla
@@ -244,7 +262,7 @@ def _mla_q(p: dict, x: torch.Tensor, positions: torch.Tensor,
     q = _proj_heads(cq, p["w_uq"])
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = rope(q[..., m.qk_nope_head_dim:], None, positions,
-                  cfg.rope_theta)[0]
+                  cfg.rope_theta, yarn=cfg.rope_scaling)[0]
     return q_nope, q_rope
 
 
@@ -252,24 +270,41 @@ def _mla_latents(p: dict, x: torch.Tensor, positions: torch.Tensor,
                  cfg: ModelConfig):
     ckv = rmsnorm(x @ p["w_dkv"].to(x.dtype), p["kv_norm"], cfg.norm_eps)
     k_rope = rope((x @ p["w_kr"].to(x.dtype))[:, :, None, :], None,
-                  positions, cfg.rope_theta)[0][:, :, 0, :]
+                  positions, cfg.rope_theta,
+                  yarn=cfg.rope_scaling)[0][:, :, 0, :]
     return ckv, k_rope
 
 
 def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor,
                 cfg: ModelConfig, q_chunk: int = 512):
-    """Train/prefill MLA. Returns (out, latent_cache)."""
+    """Train/prefill MLA. Returns (out, latent_cache).
+
+    The attention runs over slices of the batch, each through chunked
+    attention on its own up-projected K and V, so that no fp32 block of
+    scores holds more than ``MLA_SCORE_BYTES`` (DeepSeek-V3 at 256 x 512:
+    16 sequences a slice, not one 34 GB block); a batch that fits is one
+    slice."""
     m = cfg.mla
     q_nope, q_rope = _mla_q(p, x, positions, cfg)
-    ckv, k_rope = _mla_latents(p, x, positions, cfg)
-    k_nope = _proj_heads(ckv, p["w_uk"])
-    v = _proj_heads(ckv, p["w_uv"])
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
-        *k_nope.shape[:3], m.qk_rope_head_dim)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    ctx = chunked_attention(q, k, v, causal=True, q_chunk=q_chunk,
-                            scale=scale)
+    del q_nope, q_rope
+    ckv, k_rope = _mla_latents(p, x, positions, cfg)
+    B, S, H = q.shape[:3]                # H: this rank's heads on a mesh
+    qc = q_chunk if (S % q_chunk == 0 and S >= q_chunk) else S
+    per = max(1, MLA_SCORE_BYTES // (H * qc * S * 4))
+    scale = mla_scale(cfg)
+    ctx = q.new_empty((B, S, H, m.v_head_dim))
+    for b in range(0, B, per):
+        c = ckv[b:b + per]
+        k_nope = _proj_heads(c, p["w_uk"])
+        k = torch.cat([k_nope, k_rope[b:b + per, :, None, :].expand(
+            *k_nope.shape[:3], m.qk_rope_head_dim)], dim=-1)
+        del k_nope
+        ctx[b:b + per] = chunked_attention(
+            q[b:b + per], k, _proj_heads(c, p["w_uv"]), causal=True,
+            q_chunk=q_chunk, scale=scale)
+        del k
+    del q
     return _out_proj(ctx, p["w_o"]), {"ckv": ckv, "k_rope": k_rope}
 
 
@@ -280,8 +315,8 @@ def mla_decode(p: dict, x: torch.Tensor, pos: torch.Tensor, cache: dict,
     formulation), in fp32. ``pos`` is a one-element int64 tensor on x's
     device, read on the device only, as ``attn_decode`` reads it. cache:
     {ckv: (B, S, r), k_rope: (B, S, rope)}, written at ``pos`` in place
-    and returned."""
-    m = cfg.mla
+    and returned. Rope (YaRN's where ``cfg.rope_scaling``) and the scale
+    (``mla_scale``) are prefill's."""
     positions = pos.expand(x.shape[0], 1)
     q_nope, q_rope = _mla_q(p, x, positions, cfg)          # (B,1,H,*)
     ckv_new, krope_new = _mla_latents(p, x, positions, cfg)
@@ -294,8 +329,7 @@ def mla_decode(p: dict, x: torch.Tensor, pos: torch.Tensor, cache: dict,
     scores = (torch.einsum("bshr,bkr->bhsk", q_abs.float(), ckv.float())
               + torch.einsum("bshr,bkr->bhsk", q_rope.float(),
                              k_rope.float()))
-    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    scores = scores * scale
+    scores = scores * mla_scale(cfg)
     valid = torch.arange(S, device=x.device) <= pos
     scores = torch.where(valid[None, None, None, :], scores, NEG_INF)
     pr = torch.softmax(scores, dim=-1)

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -9,7 +10,7 @@ import torch
 import torch.nn.functional as F
 from torch._subclasses.fake_tensor import FakeTensor
 
-from repro_torch.config.base import ModelConfig
+from repro_torch.config.base import ModelConfig, YaRNConfig, yarn_mscale
 from repro_torch.kernels import norm_rope
 from repro_torch.kernels.norm_rope.ref import (add_rmsnorm_ref, rmsnorm_ref,
                                                rope_ref)
@@ -62,17 +63,48 @@ MROPE_SECTIONS = (16, 24, 24)   # qwen2-vl split of head_dim/2 across (t, h, w)
 _FREQS: dict = {}
 
 
-def _rope_freqs(dim_half: int, theta: float, device: torch.device
-                ) -> torch.Tensor:
+def yarn_freqs(extra: np.ndarray, theta: float, yarn: YaRNConfig
+               ) -> np.ndarray:
+    """YaRN's inverse frequencies from RoPE's own (``extra``, fp32, one
+    per pair of the rope's D columns), as DeepSeek-V3 builds them: those
+    stretched ``factor`` times (``inter``) and ``extra``, blended by a
+    ramp that runs from 0 at the ``low`` to 1 at the ``high`` correction
+    dim, the dims where ``beta_fast`` and ``beta_slow`` rotations fit the
+    original context: ``extra`` below ``low``, ``inter`` above ``high``."""
+    D = 2 * len(extra)
+
+    def correction_dim(rotations: float) -> float:
+        return (D * math.log(yarn.original_max_position_embeddings
+                             / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+    low = max(math.floor(correction_dim(yarn.beta_fast)), 0)
+    high = min(math.ceil(correction_dim(yarn.beta_slow)), D - 1)
+    inter = extra / np.float32(yarn.factor)
+    ramp = np.clip((np.arange(len(extra), dtype=np.float32) - low)
+                   / max(high - low, 1e-3), 0, 1).astype(np.float32)
+    return inter * ramp + extra * (1 - ramp)
+
+
+def _rope_freqs(dim_half: int, theta: float, device: torch.device,
+                yarn: Optional[YaRNConfig] = None) -> torch.Tensor:
     """The reference's fp32 inverse frequencies (computed in numpy, as it
-    computes them), copied to ``device`` once: a copy from pageable host
-    memory on every call would synchronize the stream twice per layer. A
-    fake tensor (made under the dry-run's ``FakeTensorMode``) is not kept:
-    it would leak into later real calls."""
-    key = (dim_half, theta, device)
+    computes them), YaRN's (``yarn_freqs``) where ``yarn`` is given,
+    copied to ``device`` once: a copy from pageable host memory on every
+    call would synchronize the stream twice per layer. A fake tensor (made
+    under the dry-run's ``FakeTensorMode``) is not kept: it would leak
+    into later real calls."""
+    key = (dim_half, theta, device, yarn)
     if key not in _FREQS:
         freqs = 1.0 / (theta ** (np.arange(0, dim_half, dtype=np.float32)
                                  / dim_half))
+        if yarn is not None:
+            if yarn_mscale(yarn.factor, yarn.mscale) != yarn_mscale(
+                    yarn.factor, yarn.mscale_all_dim):
+                raise ValueError(
+                    f"YaRN with mscale {yarn.mscale} != mscale_all_dim "
+                    f"{yarn.mscale_all_dim} scales cos and sin, which the "
+                    f"rope here does not")
+            freqs = yarn_freqs(freqs, theta, yarn)
         t = torch.from_numpy(np.asarray(freqs, np.float32)).to(device)
         if isinstance(t, FakeTensor):
             return t
@@ -90,7 +122,8 @@ def mrope_sections(half: int) -> list[int]:
 
 
 def rope(q: torch.Tensor, k: Optional[torch.Tensor], positions: torch.Tensor,
-         theta: float, mrope: bool = False
+         theta: float, mrope: bool = False,
+         yarn: Optional[YaRNConfig] = None
          ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """q (B, S, Hq, Dh) and k (B, S, Hkv, Dh), or None, turned at
     ``positions`` (B, S), or (3, B, S) with ``mrope``: split halves, not
@@ -99,9 +132,9 @@ def rope(q: torch.Tensor, k: Optional[torch.Tensor], positions: torch.Tensor,
     (its plain version on the CPU), else the plain chain. With M-RoPE each
     section of the frequencies turns with its own axis (t, h, w); the
     sections' frequencies are RoPE's, cut in three, so equal rows give
-    RoPE."""
+    RoPE. ``yarn`` takes YaRN's frequencies (``yarn_freqs``)."""
     half = q.shape[-1] // 2
-    freqs = _rope_freqs(half, theta, positions.device)
+    freqs = _rope_freqs(half, theta, positions.device, yarn)
     sections = mrope_sections(half) if mrope else []
     if _records_grad(q, k):
         out = rope_ref(q, k, positions, freqs, sections)

@@ -1,6 +1,14 @@
 """Mixture-of-Experts FFN: top-k routing with sort-based dispatch (no
 (T, E, C) one-hot is ever built), in two forms.
 
+The router (``route``) is ``MoEConfig.scoring_func``'s: ``"softmax"``
+(``_route``: the top k of a softmax over the experts, renormalized; every
+registered configuration, as the JAX package routes them) or
+``"sigmoid"`` (``_route_sigmoid``: DeepSeek-V3's published router, sigmoid
+scores with a per-expert correction bias that only chooses, group-limited
+top k, gates of the unbiased scores renormalized and scaled), which the
+benchmark's DeepSeek-V3 configuration selects.
+
 * **Dropless** (``_dropless``), the serving path: ``Model.prefill`` and
   ``Model.decode`` set ``MCtx.dropless``, and every (token, slot) pair
   reaches its expert, as Mixtral and DeepSeek are served. The T * k pairs
@@ -11,10 +19,18 @@
   device. No capacity and no padded slot: its memory is T * k rows however
   skewed the routing, its shapes are static and it never reads back to the
   host, so a decode step that holds it can be captured as a CUDA graph.
+  The layer may hold a share of the experts (``MoEConfig.experts_held``
+  from ``first_held``: one chip's share under expert parallelism, whose
+  exchange is absent on one chip): it routes over all of them and
+  computes its own experts' part of the result, the pairs of experts held
+  elsewhere adding nothing, and gathers only its pairs' rows (in a
+  prefill it counts them on the host first; a decode step keeps a static
+  shape). The shared expert is added once, whatever the share.
 * **Capacity** (``_routed``), the training step's and the mesh bodies':
   each expert has ``C = ceil(capacity_factor * T * k / E)`` slots, filled
   in token order, and the pairs that overflow are dropped, GShard-style,
-  as the reference drops them.
+  as the reference drops them. It takes the softmax router and every
+  expert, and refuses the sigmoid router or a share.
 
 The capacity form has two bodies, as in the reference, picked by
 ``use_ep`` on a mesh (``models/tp.moe_ffn``):
@@ -64,11 +80,13 @@ from repro_torch.models.params import ParamSpec
 # body a cell reached)
 BODY_CALLS = {"ep": 0, "tp": 0}
 
-# the key of the dropless layers' counters in ``MCtx.stats``: an int64 (3,)
+# the key of the dropless layers' counters in ``MCtx.stats``: an int64 (4,)
 # tensor on the device, kept in place (so a captured decode step updates
-# it on every replay): (token, slot) pairs routed, pairs dropped (0 unless
-# an expert id falls outside every expert's rows), and the most pairs one
-# expert took in one layer, the largest over the layers
+# it on every replay): (token, slot) pairs routed (T * k a layer), pairs
+# dropped (0 unless an expert id falls outside every expert's rows; a
+# share's pairs of experts held elsewhere are not dropped), the most pairs
+# one held expert took in one layer (the largest over the layers), and
+# the pairs that reached an expert the layer holds
 COUNTS = "moe_counts"
 
 
@@ -86,6 +104,8 @@ def use_ep(cfg: ModelConfig, mesh) -> bool:
 
 
 def moe_specs(cfg: ModelConfig, ep: bool = True) -> dict:
+    """The router over every expert, the held experts' weights and, with
+    the sigmoid router, its per-expert correction bias."""
     e = cfg.moe
     d = cfg.d_model
     ff = e.d_ff_expert or cfg.d_ff
@@ -94,10 +114,13 @@ def moe_specs(cfg: ModelConfig, ep: bool = True) -> dict:
     specs = {
         "router": ParamSpec((d, e.num_experts), (None, None),
                             init="small_normal"),
-        "w_gate": ParamSpec((e.num_experts, d, ff), waxes),
-        "w_up": ParamSpec((e.num_experts, d, ff), waxes),
-        "w_down": ParamSpec((e.num_experts, ff, d), daxes),
+        "w_gate": ParamSpec((e.held, d, ff), waxes),
+        "w_up": ParamSpec((e.held, d, ff), waxes),
+        "w_down": ParamSpec((e.held, ff, d), daxes),
     }
+    if e.scoring_func == "sigmoid":
+        specs["e_score_correction_bias"] = ParamSpec(
+            (e.num_experts,), (None,), init="zeros")
     if e.num_shared_experts:
         ffs = ff * e.num_shared_experts
         specs["shared"] = {
@@ -125,6 +148,60 @@ def _route(x: torch.Tensor, router_w: torch.Tensor, k: int):
     gates, eids = gates[:, :k], eids[:, :k]
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     return gates, eids, probs
+
+
+def _route_sigmoid(x: torch.Tensor, router_w: torch.Tensor,
+                   bias: torch.Tensor, e) -> tuple:
+    """DeepSeek-V3's router (``MoEConfig.scoring_func == "sigmoid"``): x
+    (T, d) -> gates (T, k) f32, eids (T, k) int64, scores (T, E) f32.
+
+    s = sigmoid(x W) in fp32; the choice scores s + bias; each of the
+    ``n_group`` groups scores the sum of its two best choice scores and
+    the ``topk_group`` best groups are kept; the top k experts by choice
+    score among the kept groups; their gates are their unbiased s over
+    their sum, times ``routed_scaling_factor``. Every top-n is a stable
+    descending sort, so ties go to the lower index, as ``_route`` breaks
+    them."""
+    T, E = x.shape[0], router_w.shape[-1]
+    s = torch.sigmoid(x.float() @ router_w.float())
+    choice = s + bias.float()
+    per = E // e.n_group
+    grp = choice.view(T, e.n_group, per).topk(2, dim=-1).values.sum(-1)
+    keep = torch.sort(grp, dim=-1, descending=True,
+                      stable=True).indices[:, :e.topk_group]
+    kept = torch.zeros_like(grp, dtype=torch.bool).scatter_(1, keep, True)
+    choice = choice.masked_fill(~kept.repeat_interleave(per, dim=1),
+                                float("-inf"))
+    eids = torch.sort(choice, dim=-1, descending=True,
+                      stable=True).indices[:, :e.top_k]
+    gates = s.gather(1, eids)
+    gates = gates / gates.sum(-1, keepdim=True)
+    return gates * e.routed_scaling_factor, eids, s
+
+
+def route(x: torch.Tensor, p: dict, cfg: ModelConfig) -> tuple:
+    """The layer's router on x (T, d): ``_route`` (softmax) or
+    ``_route_sigmoid`` as ``cfg.moe.scoring_func`` says."""
+    e = cfg.moe
+    if e.scoring_func == "sigmoid":
+        return _route_sigmoid(x, p["router"], p["e_score_correction_bias"],
+                              e)
+    return _route(x, p["router"], e.top_k)
+
+
+def _capacity_only_softmax(cfg: ModelConfig) -> None:
+    """The capacity bodies (training, the mesh) route by softmax over
+    every expert, as the JAX package does: they refuse the sigmoid router
+    and a share of the experts, which only serving computes."""
+    e = cfg.moe
+    if e.scoring_func != "softmax" or e.held != e.num_experts:
+        raise ValueError(
+            f"{cfg.name}: the capacity MoE body (training, the mesh) takes "
+            f"the softmax router over every expert it holds; this "
+            f"configuration routes by {e.scoring_func!r} and holds "
+            f"{e.held} of {e.num_experts} experts, which only the serving "
+            f"roles' dropless layer computes (Model.prefill / "
+            f"Model.decode off a mesh)")
 
 
 def _aux_loss(probs: torch.Tensor, eids: torch.Tensor, E: int
@@ -230,29 +307,39 @@ def _grouped_mm(a: torch.Tensor, w: torch.Tensor,
     return out
 
 
-def _count(stats: dict, ends: torch.Tensor, pairs: int) -> None:
+def _count(stats: dict, ends: torch.Tensor, pairs: int,
+           share: bool) -> None:
     """Adds one layer's pairs to ``stats[COUNTS]`` in place (made on first
-    use): routed, dropped, and the busiest expert's pairs (a maximum)."""
+    use): routed, dropped (those that no expert's rows took; none where
+    the layer holds a ``share``: the rest are other chips'), the busiest
+    held expert's pairs (a maximum) and held (the held experts' rows end
+    at ``ends[-1]``)."""
     buf = stats.get(COUNTS)
     if buf is None:
-        buf = stats[COUNTS] = torch.zeros(3, dtype=torch.int64,
+        buf = stats[COUNTS] = torch.zeros(4, dtype=torch.int64,
                                           device=ends.device)
     ends = ends.long()
-    routed = ends[-1:]
+    held = ends[-1:]
+    other = pairs - held          # pairs that no held expert's rows took
     busiest = (ends - F.pad(ends[:-1], (1, 0))).max().view(1)
-    buf[:2] += torch.cat([routed, pairs - routed])
-    buf[2:] = torch.maximum(buf[2:], busiest)
+    if share:
+        buf[:1] += held + other
+    else:
+        buf[:2] += torch.cat([held + other, other])
+    buf[2:3] = torch.maximum(buf[2:3], busiest)
+    buf[3:] += held
 
 
 def read_counts(stats: dict) -> dict | None:
     """``stats[COUNTS]`` read back to the host (a device sync) as
-    {routed_pairs, dropped_pairs, busiest_pairs}; None before any count."""
+    {routed_pairs, held_pairs, dropped_pairs, busiest_pairs}; None before
+    any count."""
     buf = stats.get(COUNTS)
     if buf is None:
         return None
-    routed, dropped, busiest = buf.tolist()
-    return {"routed_pairs": routed, "dropped_pairs": dropped,
-            "busiest_pairs": busiest}
+    routed, dropped, busiest, held = buf.tolist()
+    return {"routed_pairs": routed, "held_pairs": held,
+            "dropped_pairs": dropped, "busiest_pairs": busiest}
 
 
 def zero_counts(stats: dict) -> None:
@@ -263,30 +350,60 @@ def zero_counts(stats: dict) -> None:
 
 
 def _dropless(x_tok: torch.Tensor, p: dict, cfg: ModelConfig,
-              stats: dict | None = None) -> torch.Tensor:
-    """The serving layer on ``x_tok`` (T, d): route, run every (token,
-    slot) pair through its expert, combine. The pairs are sorted by expert
-    (stably, so an expert's rows keep token order) and their rows gathered
-    into one (T * k, d) buffer; each expert's rows end at ``ends[e]``, a
-    device tensor. Returns (T, d); counts into ``stats`` when given."""
+              stats: dict | None = None, step: bool = False
+              ) -> torch.Tensor:
+    """The serving layer on ``x_tok`` (T, d): route over every expert,
+    run every (token, slot) pair of a held expert through it, combine.
+    The pairs are sorted by held expert (stably, so an expert's rows keep
+    token order; a share's other pairs after them) and their rows
+    gathered into one buffer; each held expert's rows end at ``ends[e]``,
+    a device tensor. Returns (T, d); counts into ``stats`` when given.
+
+    Holding every expert, the buffer is the T * k rows. Holding a share,
+    a pair of an expert held elsewhere adds nothing here: it is combined
+    from a zero row. A decode ``step`` (one position a sequence) gathers
+    the first T * min(k, held) sorted pairs, a shape that does not depend
+    on the routing, so it reads nothing back to the host; past the held
+    pairs those rows are gathered and left out of every group. Otherwise
+    the held pairs are counted on the host (one read a layer) and only
+    their rows gathered (DeepSeek-V3's share at 256 x 512 tokens: ~0.5 GB,
+    not the 15 GB of every pair)."""
     e = cfg.moe
-    E, k = e.num_experts, e.top_k
+    E, k, n = e.num_experts, e.top_k, e.held
     T = x_tok.shape[0]
-    gates, eids, _ = _route(x_tok, p["router"], k)
-    flat_e = eids.reshape(-1)
-    order = torch.argsort(flat_e, stable=True)
-    ends = torch.searchsorted(
-        flat_e[order], torch.arange(1, E + 1, device=x_tok.device),
-        out_int32=True)
-    rows = x_tok[order // k]
-    h = F.silu(_grouped_mm(rows, p["w_gate"], ends), inplace=True)
-    h.mul_(_grouped_mm(rows, p["w_up"], ends))
-    out = _grouped_mm(h, p["w_down"], ends)
-    del h
+    dev = x_tok.device
+    gates, eids, _ = route(x_tok, p, cfg)
+    share = n != E
+    key = eids.reshape(-1)
+    if share:
+        key = key - e.first_held
+        key = torch.where((key >= 0) & (key < n), key, n)
+    order = torch.argsort(key, stable=True)
+    ends = torch.searchsorted(key[order], torch.arange(1, n + 1, device=dev),
+                              out_int32=True)
+    if not share:
+        M = T * k
+    elif step:
+        M = T * min(k, n)
+    else:
+        M = int(ends[-1])
+    rows = x_tok[order[:M] // k]
+    if M:
+        h = F.silu(_grouped_mm(rows, p["w_gate"], ends), inplace=True)
+        h.mul_(_grouped_mm(rows, p["w_up"], ends))
+        out = _grouped_mm(h, p["w_down"], ends)
+        del h
+    else:
+        out = rows
+    slot = torch.arange(T * k, device=dev)
+    if share:
+        # past the held pairs: the zero row appended below
+        out = F.pad(out, (0, 0, 0, 1))
+        slot = torch.where(slot < ends[-1], slot, M)
     pair_rows = torch.empty_like(order)
-    pair_rows[order] = torch.arange(T * k, device=x_tok.device)
+    pair_rows[order] = slot
     if stats is not None:
-        _count(stats, ends, T * k)
+        _count(stats, ends, T * k, share)
     return _combine(out, pair_rows, gates, eids)
 
 
@@ -376,9 +493,11 @@ def moe_ffn(p: dict, x: torch.Tensor, cfg: ModelConfig, mctx=None
     T = B * S
     stats = getattr(mctx, "stats", None)
     if getattr(mctx, "dropless", False):
-        y = _dropless(x.reshape(T, d), p, cfg, stats).reshape(B, S, d)
+        y = _dropless(x.reshape(T, d), p, cfg, stats,
+                      step=S == 1).reshape(B, S, d)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     else:
+        _capacity_only_softmax(cfg)
         C = _capacity(T, e.top_k, e.num_experts, e.capacity_factor)
         y, aux, dropped = _routed(
             x.reshape(T, d), p["router"], cfg, C,

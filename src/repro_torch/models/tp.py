@@ -961,7 +961,9 @@ def moe_ffn(p: dict, x: DTensor, cfg: ModelConfig, mctx):
     """The reference's mesh ``moe_ffn``: the expert-parallel body where
     ``use_ep`` holds, else the tensor-parallel one. Returns (y in x's
     layout with d whole and batch on the batch axes, aux as a plain
-    scalar)."""
+    scalar). Both bodies route by softmax over every expert
+    (``moe._capacity_only_softmax``)."""
+    moe_lib._capacity_only_softmax(cfg)
     mesh = mctx.mesh
     names = _names(mesh)
     x_pl = act(mctx, ("act_batch", None, None), _shape(x))

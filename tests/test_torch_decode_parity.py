@@ -19,6 +19,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from config_view import same_config
 
 import repro.models.params
 from repro.config.base import ParallelConfig as JaxParallelConfig
@@ -69,7 +70,7 @@ def test_config_copy_matches_reference(arch):
         want, got = jax_get_config(arch), get_config(arch)
         if reduced:
             want, got = want.reduced(), got.reduced()
-        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert same_config(got, want) == dataclasses.asdict(want)
         assert got.num_params == want.num_params
 
 
@@ -108,7 +109,7 @@ def _assert_tree_close(got: dict, want: dict, tol: float, what: str):
 def _match_reference(arch: str, overrides: dict, kernel: str):
     jcfg = jax_get_config(arch).reduced(dtype="float32", **overrides)
     cfg = get_config(arch).reduced(dtype="float32", **overrides)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    assert same_config(cfg, jcfg) == dataclasses.asdict(jcfg)
     jm = JaxModel.create(jcfg, make_host_mesh(), JaxParallelConfig(
         remat="none", attention_kernel=KERNEL[kernel]))
     jparams = jm.init(jax.random.key(0))

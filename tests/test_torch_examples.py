@@ -22,6 +22,7 @@ import types
 
 import pytest
 import torch
+from config_view import same_config
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -132,9 +133,9 @@ def test_train_tiny_lm_on_the_cpu(monkeypatch, capsys, tmp_path):
 def test_lm_100m_is_the_reference_config():
     want = _reference("train_tiny_lm").lm_100m()
     got = _port("train_tiny_lm").lm_100m()
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert same_config(got, want) == dataclasses.asdict(want)
     assert got.num_params == want.num_params
-    assert dataclasses.asdict(got.reduced()) == \
+    assert same_config(got.reduced(), want.reduced()) == \
         dataclasses.asdict(want.reduced())
 
 

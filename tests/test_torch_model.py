@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from config_view import same_config
 
 from repro.config.base import ParallelConfig as JaxParallelConfig
 from repro.config.base import get_config as jax_get_config
@@ -58,7 +59,7 @@ def test_config_copy_matches_reference():
         got = get_config("yi-9b")
         if reduced:
             want, got = want.reduced(), got.reduced()
-        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert same_config(got, want) == dataclasses.asdict(want)
 
 
 def test_unknown_attention_kernel_is_refused():

@@ -264,8 +264,8 @@ def test_dropless_drops_nothing_where_capacity_drops(shared):
     np.testing.assert_allclose(y[0].numpy(), want.numpy(), rtol=TOL,
                                atol=TOL)
     assert float(aux) == 0.0
-    routed, dropped, busiest = stats[moe.COUNTS].tolist()
-    assert (routed, dropped) == (T * k, 0)
+    routed, dropped, busiest, held = stats[moe.COUNTS].tolist()
+    assert (routed, held, dropped) == (T * k, T * k, 0)
     assert busiest == int((eids == 0).sum()) > C
     capped, _ = moe.moe_ffn(p, x[None], cfg, MCtx(ParallelConfig()))
     assert not torch.allclose(capped, y, rtol=TOL, atol=TOL)
@@ -321,9 +321,9 @@ def test_the_serving_roles_are_dropless_and_training_is_not():
         _, cache = m.prefill(params, {"tokens": toks[:, :8]}, 12)
         m.decode(params, cache, toks[:, 8:], 8)
     assert not m.mctx.dropless and m.serve_mctx.dropless
-    routed, dropped, _ = m.mctx.stats[moe.COUNTS].tolist()
+    routed, dropped, _, held = m.mctx.stats[moe.COUNTS].tolist()
     pairs = cfg.num_layers * cfg.moe.top_k * 2
-    assert (routed, dropped) == (pairs * 8 + pairs, 0)
+    assert (routed, held, dropped) == (pairs * 8 + pairs,) * 2 + (0,)
     assert "moe_dropped" not in m.mctx.stats
     m.loss(params, {"tokens": toks[:, :8], "labels": toks[:, 1:]})
     assert "moe_dropped" in m.mctx.stats
